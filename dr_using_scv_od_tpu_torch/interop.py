@@ -1,0 +1,86 @@
+"""State carried across from the JAX package.
+
+The system has no learned weights: its parameters are the frozen
+`PipelineConfig` and the streaming tracking carry (table, label_grid,
+counter) that `run_window(init_track=...)` takes. These functions rebuild
+both from plain Python / numpy values (`dataclasses.asdict` of a JAX
+config, arrays fetched with `np.asarray`), so nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing
+from typing import Mapping, Tuple
+
+import numpy as np
+import torch
+
+from .config import PipelineConfig
+from .types import ClusterTable
+
+_TABLE_DTYPES = {
+    "valid": torch.bool, "n_points": torch.int32, "n_voxels": torch.int32,
+    "bbox_min": torch.float32, "bbox_max": torch.float32,
+    "type": torch.int32, "state": torch.int32, "track_id": torch.int32,
+}
+
+
+def _build(cls, d: Mapping):
+    hints = typing.get_type_hints(cls)
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        t = hints[f.name]
+        if dataclasses.is_dataclass(t):
+            v = _build(t, v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def config_from_reference(d: Mapping) -> PipelineConfig:
+    """The port's PipelineConfig from `dataclasses.asdict` of a JAX
+    PipelineConfig (lists, e.g. from JSON, become tuples)."""
+    return _build(PipelineConfig, d)
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def cluster_table_from_numpy(fields: Mapping[str, np.ndarray],
+                             device: torch.device | str) -> ClusterTable:
+    """A ClusterTable on `device` from a mapping of field name to array
+    (a JAX ClusterTable's fields fetched with np.asarray)."""
+    return ClusterTable(**{name: _tensor(fields[name], dtype, device)
+                           for name, dtype in _TABLE_DTYPES.items()})
+
+
+def track_carry_from_numpy(table: Mapping[str, np.ndarray],
+                           label_grid: np.ndarray, counter,
+                           device: torch.device | str
+                           ) -> Tuple[ClusterTable, torch.Tensor,
+                                      torch.Tensor]:
+    """The streaming carry (table, label_grid [G] int32, counter scalar
+    int32) of `run_window(init_track=...)` on `device`."""
+    return (cluster_table_from_numpy(table, device),
+            _tensor(label_grid, torch.int32, device),
+            _tensor(counter, torch.int32, device).reshape(()))
+
+
+def window_from_numpy(win: Mapping[str, np.ndarray],
+                      device: torch.device | str):
+    """(xyz, intensity, valid, poses) tensors on `device` from a window
+    dict of utils/synthetic.render_window."""
+    return (_tensor(win["xyz"], torch.float32, device),
+            _tensor(win["intensity"], torch.float32, device),
+            _tensor(win["valid"], torch.bool, device),
+            _tensor(win["poses"], torch.float32, device))
