@@ -6,17 +6,34 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
 
 Phases (each raises on failure, so the script exits non-zero):
   1. require CUDA, switch TF32 off, print the card's name and power limit;
-  2. build csrc/cluster_labels.cu with nvcc for sm_90a;
+  2. build the three kernels (csrc/cluster_labels.cu, cc_labels.cu,
+     ri3_labels.cu) with nvcc for sm_90a, one process each, in parallel;
   3. run the main path, run_window at the full semantickitti() width
      (N = 131,072 points, G = 1,296,000 voxels, C = 512 clusters) on a
      5-frame synthetic window, counting the kernel's launches, and hold
      PR > 99 / RR > 96 / F1 > 0.97 and the port's CPU result on the same
      window;
-  4. hold the kernel against cluster_labels_reference (identical int32
+  4. hold cluster_labels against cluster_labels_reference (identical int32
      labels, in each of 10 launches) on every frame's grid and on
      adversarial grids;
   5. time run_window (ms/frame, 6-frame window) and the kernel beside its
-     plain version on a full-size grid, with CUDA events.
+     plain version on a full-size grid, with CUDA events;
+  6. hold cc_labels and ri3_labels against their plain versions (identical
+     labels in each of 10 launches) on every frame grid, the cases of
+     tests/test_cc_pallas.py and tests/test_ri3_pallas.py, and RI3 on a
+     labelling that is no connected-components fixpoint; and check the
+     identities ri3(cc(occ)) == cluster_labels(occ) and cc(occ) ==
+     cluster_labels(occ, enable_shell=False) on every frame grid;
+  7. run the stage profiler's cc, ri3, fused and gicp components (the
+     entry point of the three kernels) at full width, counting each
+     kernel's launches;
+  8. odometry at full width on the 4-frame window of tests/test_odometry.py:
+     scan-to-scan ATE < 0.15 m with > 5000 correspondences per pair,
+     scan-to-map ATE < 0.05 m, run_window on the estimated poses PR > 98 /
+     RR > 70, the card's poses against the port's CPU poses, and the
+     time per registered pair;
+  9. time cc_labels and ri3_labels beside their plain versions on the
+     frame-0 grid.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -33,8 +50,12 @@ import torch
 
 from dr_using_scv_od_tpu_torch import config, interop
 from dr_using_scv_od_tpu_torch.eval import metrics
-from dr_using_scv_od_tpu_torch.models import pipeline
+from dr_using_scv_od_tpu_torch.models import odometry, pipeline
+from dr_using_scv_od_tpu_torch.ops import cc_labels as cc
 from dr_using_scv_od_tpu_torch.ops import cluster_labels as cl
+from dr_using_scv_od_tpu_torch.ops import clustering, cuda_build
+from dr_using_scv_od_tpu_torch.ops import ri3_labels as ri3
+from dr_using_scv_od_tpu_torch.tools import profile_stages
 from dr_using_scv_od_tpu_torch.utils import synthetic
 
 F_CHECK = 5        # window judged against the accuracy floors
@@ -42,6 +63,9 @@ F_TIME = 6         # window timed (bench.py's shape)
 TIME_REPS = 3
 KERNEL_REPS = 20
 CHECK_REPS = 10    # the atomics' order varies from launch to launch
+F_ODOM = 4         # tests/test_odometry.py's window
+POSE_ATOL = 5e-4   # card vs CPU poses (tests/test_torch_odometry.py)
+KERNELS = (cl.cluster_labels, cc.cc_labels, ri3.ri3_labels)
 
 
 def _log(msg: str) -> None:
@@ -95,6 +119,73 @@ def adversarial_grids(device):
     return out
 
 
+def cc_cases():
+    """(name, occ3 numpy) cases of tests/test_cc_pallas.py: its shapes and
+    densities, the multi-tile seam fuzz, no azimuth wraparound, the
+    snake."""
+    out = []
+    for shape, density in (((4, 8, 16), 0.3), ((12, 16, 24), 0.2),
+                           ((12, 16, 24), 0.6)):
+        out.append((f"cc-{shape}-{density}",
+                    np.random.default_rng(0).random(shape) < density))
+    for seed in range(3):
+        out.append((f"cc-seam{seed}", np.random.default_rng(seed + 19)
+                    .random((12, 16, 24)) < 0.35))
+    occ = np.zeros((12, 16, 24), bool)
+    occ[0, 5, 10] = True
+    occ[5:10, 5, 10] = True
+    out.append(("cc-no-azimuth-wrap", occ))
+    occ = np.zeros((6, 8, 40), bool)
+    occ[2, 3, :] = True
+    occ[3, 4, 39] = True
+    occ[0, 0, 0] = True
+    out.append(("cc-snake", occ))
+    return out
+
+
+def ri3_cases():
+    """(name, occ3, mean, var, far_range_frac, must_merge, a, b) semantic
+    cases of tests/test_ri3_pallas.py (search_c 2, cov 1, diff 2): voxels
+    a and b must (or must not) share a label."""
+    shape3 = (4, 8, 32)
+    out = []
+
+    def grid(shape=shape3):
+        return (np.zeros(shape, bool), np.zeros(shape, np.float32),
+                np.zeros(shape, np.float32))
+
+    occ, av, var = grid()
+    occ[1, 3, 5] = occ[1, 3, 7] = occ[1, 3, 20] = True
+    av[1, 3, 5], av[1, 3, 7], av[1, 3, 20] = 100.0, 101.0, 100.0
+    out.append(("ri3-qualifying-gap", occ, av, var, 1.0, True,
+                (1, 3, 5), (1, 3, 7)))
+    out.append(("ri3-far-cluster", occ, av, var, 1.0, False,
+                (1, 3, 5), (1, 3, 20)))
+    occ, av, var = grid()
+    occ[1, 3, 5] = occ[1, 3, 7] = True
+    av[:] = 100.0
+    var[1, 3, 5] = var[1, 3, 7] = 50.0
+    out.append(("ri3-bad-variance", occ, av, var, 1.0, False,
+                (1, 3, 5), (1, 3, 7)))
+    occ, av, var = grid()
+    occ[1, 3, 5] = occ[1, 3, 7] = True
+    av[1, 3, 5], av[1, 3, 7] = 100.0, 150.0
+    out.append(("ri3-intensity-differs", occ, av, var, 1.0, False,
+                (1, 3, 5), (1, 3, 7)))
+    occ, av, var = grid()
+    occ[1, 3, 2:6] = occ[1, 3, 7:11] = True
+    av[1, 3, 2:6], av[1, 3, 7:11] = 100.0, 101.0
+    var[1, 3, 3] = var[1, 3, 9] = 99.0
+    out.append(("ri3-spread-across-cluster", occ, av, var, 1.0, True,
+                (1, 3, 2), (1, 3, 10)))
+    occ, av, var = grid((4, 16, 32))
+    occ[1, 14, 5] = occ[1, 14, 7] = True
+    av[:] = 100.0
+    out.append(("ri3-far-range-shrink", occ, av, var, 0.6, False,
+                (1, 14, 5), (1, 14, 7)))
+    return out
+
+
 def _time_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -121,10 +212,12 @@ def main() -> int:
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
          f"python {sys.version.split()[0]}")
 
-    # ---- 2. build
+    # ---- 2. build the three kernels in parallel
     t0 = time.perf_counter()
-    lib = cl.build_library()
-    _log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    libs = cuda_build.build_libraries("cluster_labels", "cc_labels",
+                                      "ri3_labels")
+    _log(f"built {', '.join(p.name for p in libs.values())} in "
+         f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 3. main path at full width, counting kernel launches
     cfg = config.semantickitti()
@@ -132,7 +225,8 @@ def main() -> int:
     scene = synthetic.make_scene()
     win = synthetic.render_window(scene, F_CHECK, N)
     args = interop.window_from_numpy(win, dev)
-    cl.cluster_labels.launches = 0
+    for k in KERNELS:
+        k.launches = 0
     res = pipeline.run_window(*args, cfg)
     torch.cuda.synchronize()
     launches = cl.cluster_labels.launches
@@ -216,16 +310,146 @@ def main() -> int:
     _log(f"cluster_labels on the frame-0 grid {tuple(cfg.grid.shape)}: "
          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
 
+    # ---- 6. kernels 2 and 3 against their plain versions, and the
+    # identities that tie them to kernel 1
+    errs = {"cc_labels": 0, "ri3_labels": 0}
+
+    def hold(name, kernel, plain, args):
+        want = plain(*args).long()
+        for _ in range(CHECK_REPS):
+            err = int((kernel(*args).long() - want).abs().max())
+            errs[kernel.__name__] = max(errs[kernel.__name__], err)
+            _check(err == 0, f"{name}: {kernel.__name__} labels differ from "
+                   f"the plain version")
+        return want
+
+    shape3 = tuple(cfg.grid.shape)
+    ri3_args = (seg.search_c, seg.intensity_cov, seg.intensity_diff,
+                seg.far_range_frac)
+    for f in range(F_CHECK):
+        occ3 = grids.count[f].reshape(shape3) > 0
+        planes = (grids.count[f], grids.intensity_mean[f],
+                  grids.intensity_var[f])
+        root = hold(f"frame{f}", cc.cc_labels,
+                    clustering.connected_components, (occ3,)).int()
+        hold(f"frame{f}", ri3.ri3_labels, ri3.ri3_labels_reference,
+             (root,) + planes + (shape3,) + ri3_args)
+        fused = cl.cluster_labels(occ3, *planes[1:], *ri3_args)
+        _check(torch.equal(ri3.ri3_labels(cc.cc_labels(occ3), *planes,
+                                          shape3, *ri3_args), fused),
+               f"frame{f}: ri3(cc(occ)) != cluster_labels(occ)")
+        _check(torch.equal(cc.cc_labels(occ3), cl.cluster_labels(
+            occ3, *planes[1:], *ri3_args, enable_shell=False)),
+            f"frame{f}: cc(occ) != cluster_labels(occ, enable_shell=False)")
+        if f == 0:
+            ri3_frame0 = (root,) + planes + (shape3,) + ri3_args
+    ccs, ri3s = cc_cases(), ri3_cases()
+    for name, occ in ccs:
+        hold(name, cc.cc_labels, clustering.connected_components,
+             (torch.as_tensor(occ, device=dev),))
+    for name, occ, av, var, far, merge, a, b in ri3s:
+        occ3 = torch.as_tensor(occ, device=dev)
+        args = (clustering.connected_components(occ3),
+                occ3.reshape(-1).int(),
+                torch.as_tensor(av.reshape(-1), device=dev),
+                torch.as_tensor(var.reshape(-1), device=dev),
+                occ.shape, 2, 1.0, 2.0, far)
+        lab = hold(name, ri3.ri3_labels, ri3.ri3_labels_reference, args)
+        ia, ib = (np.ravel_multi_index(v, occ.shape) for v in (a, b))
+        _check(bool(lab[ia] == lab[ib]) == merge,
+               f"{name}: voxels {a} and {b} "
+               f"{'did not merge' if merge else 'merged'}")
+    # any input: labels that are no CC fixpoint (a random permutation)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    perm = torch.randperm(cfg.grid.bin_num, generator=gen).to(dev).int()
+    hold("frame0-permuted-labels", ri3.ri3_labels, ri3.ri3_labels_reference,
+         (perm,) + ri3_frame0[1:])
+    _log(f"cc_labels and ri3_labels == plain on {F_CHECK} frame grids, "
+         f"{len(ccs)} CC cases, {len(ri3s) + 1} RI3 cases x "
+         f"{CHECK_REPS} launches; identities hold on every frame grid")
+
+    # ---- 7. the stage profiler's path through the three kernels
+    for k in KERNELS:
+        k.launches = 0
+    prof = profile_stages.run(("cc", "ri3", "fused", "gicp"), cfg, dev)
+    torch.cuda.synchronize()
+    prof_launches = {k.__name__: k.launches for k in KERNELS}
+    _log(f"profiler path launches: {prof_launches}; ms: {json.dumps(prof)}")
+    for name, n in prof_launches.items():
+        _check(n >= 1, f"the profiler path did not launch {name}")
+
+    # ---- 8. odometry at full width, and run_window on estimated poses
+    owin = synthetic.render_window(scene, F_ODOM, N)
+    oxyz, ointen, ovalid, oposes = interop.window_from_numpy(owin, dev)
+    s2s = odometry.estimate_window_poses(oxyz, ovalid, cfg)
+    ate_s2s = float(odometry.ate_rmse(s2s.poses, oposes))
+    s2m = odometry.estimate_window_poses_scan_to_map(oxyz, ovalid, cfg)
+    ate_s2m = float(odometry.ate_rmse(s2m.poses, oposes))
+    _log(f"odometry: scan-to-scan ATE {ate_s2s:.5f} m, n_corr "
+         f"{s2s.n_corr.tolist()}; scan-to-map ATE {ate_s2m:.5f} m")
+    _check(ate_s2s < 0.15, "scan-to-scan ATE >= 0.15 m")
+    _check(bool((s2s.n_corr > 5000).all()), "a pair has <= 5000 "
+           "correspondences")
+    _check(ate_s2m < 0.05, "scan-to-map ATE >= 0.05 m")
+    est = pipeline.run_window(oxyz, ointen, ovalid, s2s.poses, cfg)
+    m = metrics.removal_metrics(owin["label"][:F_ODOM - 1],
+                                est.removed[:F_ODOM - 1].cpu().numpy(),
+                                owin["valid"][:F_ODOM - 1])
+    _log(f"run_window on estimated poses: PR {m.pr:.4f} RR {m.rr:.4f} "
+         f"F1 {m.f1:.5f}")
+    _check(m.pr > 98.0 and m.rr > 70.0, "PR > 98 / RR > 70 missed on "
+           "estimated poses")
+    cwin = interop.window_from_numpy(owin, "cpu")
+    pose_err = max(
+        float((s2s.poses.cpu() - odometry.estimate_window_poses(
+            cwin[0], cwin[2], cfg).poses).abs().max()),
+        float((s2m.poses.cpu() - odometry.estimate_window_poses_scan_to_map(
+            cwin[0], cwin[2], cfg).poses).abs().max()))
+    _log(f"odometry poses, card vs cpu: max abs diff {pose_err:.3e}")
+    _check(pose_err < POSE_ATOL, f"card and cpu poses differ by >= "
+           f"{POSE_ATOL}")
+    ms_pair = _time_ms(lambda: odometry.estimate_window_poses(
+        oxyz, ovalid, cfg), TIME_REPS) / (F_ODOM - 1)
+    ms_pair_s2m = _time_ms(lambda: odometry.estimate_window_poses_scan_to_map(
+        oxyz, ovalid, cfg), TIME_REPS) / (F_ODOM - 1)
+    _log(f"odometry: {ms_pair:.3f} ms per registered pair (scan-to-scan), "
+         f"{ms_pair_s2m:.3f} ms (scan-to-map), F={F_ODOM}, {TIME_REPS} reps")
+
+    # ---- 9. kernels 2 and 3 beside their plain versions, frame-0 grid
+    occ0 = frame0[0]
+    timed = {}
+    for name, kernel, plain, args in (
+            ("cc_labels", cc.cc_labels, clustering.connected_components,
+             (occ0,)),
+            ("ri3_labels", ri3.ri3_labels, ri3.ri3_labels_reference,
+             ri3_frame0)):
+        kernel(*args)
+        plain(*args)
+        timed[name] = (_time_ms(lambda: kernel(*args), KERNEL_REPS),
+                       _time_ms(lambda: plain(*args), TIME_REPS))
+        _log(f"{name} on the frame-0 grid: kernel {timed[name][0]:.4f} ms, "
+             f"plain {timed[name][1]:.4f} ms")
+    timed["cluster_labels"] = (kernel_ms, plain_ms)
+
+    launch_counts = {"cluster_labels": launches,
+                     "cc_labels": prof_launches["cc_labels"],
+                     "ri3_labels": prof_launches["ri3_labels"]}
+    errs["cluster_labels"] = max_err
+    replaces = {
+        "cluster_labels": "dr_using_scv_od_tpu/ops/pallas/fused_seg.py:56",
+        "cc_labels": "dr_using_scv_od_tpu/ops/pallas/cc_kernel.py:49",
+        "ri3_labels": "dr_using_scv_od_tpu/ops/pallas/ri3_kernel.py:52",
+    }
     print(json.dumps({"kernels": [{
-        "name": "cluster_labels",
+        "name": name,
         "route": "cuda",
-        "source": "dr_using_scv_od_tpu_torch/csrc/cluster_labels.cu",
-        "replaces": "dr_using_scv_od_tpu/ops/pallas/fused_seg.py:56",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": f"dr_using_scv_od_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces[name],
+        "launches": launch_counts[name],
+        "max_abs_err": errs[name],
+        "ms": timed[name][0],
+        "plain_ms": timed[name][1],
+    } for name in replaces]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,11 +7,15 @@ Module paths and public names mirror the JAX package.
 Layer map (bottom-up):
   config   - typed profiles (a copy of the JAX package's config.py)
   types    - tensor containers with the JAX package's field names
-  interop  - configs and streaming tracking state carried over from JAX
+  interop  - configs, streaming tracking state and GICP state carried
+             over from JAX
   ops      - geometry, quantization, segment reductions, clustering and the
-             hand-written CUDA union-find kernel (ops/cluster_labels.py,
-             csrc/cluster_labels.cu)
-  models   - patchwork, segmentation, recognition, tracking, pipeline
+             three hand-written CUDA union-find kernels, built by
+             ops/cuda_build.py from csrc/: cluster_labels (fused CC + RI3),
+             cc_labels (CC) and ri3_labels (RI3), all on csrc/union_find.cuh
+  models   - patchwork, segmentation, recognition, tracking, pipeline;
+             gicp, posegraph.odometry_chain and odometry (window poses)
+  tools    - profile_stages: per-component timing on one device
   utils    - the synthetic scene generator (a copy)
   eval     - PR/RR/F1 removal metrics in numpy
 

@@ -1,10 +1,11 @@
 """State carried across from the JAX package.
 
 The system has no learned weights: its parameters are the frozen
-`PipelineConfig` and the streaming tracking carry (table, label_grid,
-counter) that `run_window(init_track=...)` takes. These functions rebuild
-both from plain Python / numpy values (`dataclasses.asdict` of a JAX
-config, arrays fetched with `np.asarray`), so nothing here imports JAX.
+`PipelineConfig`, the streaming tracking carry (table, label_grid,
+counter) that `run_window(init_track=...)` takes, and the GICP state (a
+voxel map and its finalized target). These functions rebuild them from
+plain Python / numpy values (`dataclasses.asdict` of a JAX config, arrays
+fetched with `np.asarray`), so nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .config import PipelineConfig
+from .models.gicp import GicpTarget, VoxelMap
 from .types import ClusterTable
 
 _TABLE_DTYPES = {
@@ -84,3 +86,23 @@ def window_from_numpy(win: Mapping[str, np.ndarray],
             _tensor(win["intensity"], torch.float32, device),
             _tensor(win["valid"], torch.bool, device),
             _tensor(win["poses"], torch.float32, device))
+
+
+def voxel_map_from_numpy(fields: Mapping[str, np.ndarray],
+                         device: torch.device | str) -> VoxelMap:
+    """A gicp.VoxelMap on `device` from a mapping of field name to array
+    (a JAX VoxelMap's `_asdict()`)."""
+    return VoxelMap(n=_tensor(fields["n"], torch.float32, device),
+                    sum_x=_tensor(fields["sum_x"], torch.float32, device),
+                    sum_xx=_tensor(fields["sum_xx"], torch.float32, device),
+                    n_oob=_tensor(fields["n_oob"], torch.int32,
+                                  device).reshape(()))
+
+
+def gicp_target_from_numpy(fields: Mapping[str, np.ndarray],
+                           device: torch.device | str) -> GicpTarget:
+    """A gicp.GicpTarget on `device` from a mapping of field name to array
+    (a JAX GicpTarget's `_asdict()`)."""
+    return GicpTarget(mean=_tensor(fields["mean"], torch.float32, device),
+                      weight=_tensor(fields["weight"], torch.float32, device),
+                      valid=_tensor(fields["valid"], torch.bool, device))

@@ -49,17 +49,20 @@ def occupied_pairs(occupied3: torch.Tensor,
 
 
 def min_label_components(n_voxels: int, ids: torch.Tensor,
-                         src: torch.Tensor, dst: torch.Tensor
-                         ) -> torch.Tensor:
+                         src: torch.Tensor, dst: torch.Tensor,
+                         init: torch.Tensor | None = None) -> torch.Tensor:
     """Exact connected components of the graph on the voxels `ids`
     (ascending flat ids) with undirected edges (src[e], dst[e]) (flat ids).
 
     Min-label propagation (`scatter_reduce` amin both ways over the edge
     list) plus pointer jumping `lab = lab[lab]`, until nothing changes.
     Returns [n_voxels] int32: each listed voxel holds the minimum flat id
-    of its component, every other voxel its own id. Raises if the
-    iteration guard (one more round than there are voxels; the labels
-    converge within the graph's diameter) is exceeded."""
+    of its component, every other voxel its own id. With `init` ([n_voxels]
+    integer labels), each listed voxel holds instead the minimum of `init`
+    over its component: the fixpoint of min-label propagation seeded with
+    `init`. Raises if the iteration guard (one more round than there are
+    voxels; the labels converge within the graph's diameter) is
+    exceeded."""
     device = ids.device
     M = ids.numel()
     cs = torch.searchsorted(ids, src)
@@ -75,7 +78,13 @@ def min_label_components(n_voxels: int, ids: torch.Tensor,
     else:
         raise RuntimeError("min-label propagation did not converge")
     out = torch.arange(n_voxels, dtype=torch.int32, device=device)
-    out[ids] = ids[lab].to(torch.int32)
+    if init is None:
+        out[ids] = ids[lab].to(torch.int32)
+    else:
+        seed = init[ids].long()
+        comp_min = torch.full_like(seed, torch.iinfo(torch.int64).max
+                                   ).scatter_reduce(0, lab, seed, "amin")
+        out[ids] = comp_min[lab].to(torch.int32)
     return out
 
 

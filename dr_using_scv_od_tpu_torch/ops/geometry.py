@@ -1,6 +1,6 @@
 """Vectorized geometric primitives (counterpart of
-dr_using_scv_od_tpu/ops/geometry.py:19-112): 2-D range, polar and azimuth
-angles, rigid transforms. Operation order follows the JAX functions so the
+dr_using_scv_od_tpu/ops/geometry.py:19-170): 2-D range, polar and azimuth
+angles, rigid transforms, and the se(3) maps of GICP. Operation order follows the JAX functions so the
 two agree bit for bit where the arithmetic allows.
 """
 
@@ -55,3 +55,61 @@ def inverse_se3(T: torch.Tensor) -> torch.Tensor:
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=T.dtype,
                           device=T.device).expand(T.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+# se(3) exponential and hat maps for the GICP Gauss-Newton solver
+# (geometry.py:114-170).
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """[...,3] -> [...,3,3] skew-symmetric matrix."""
+    zeros = torch.zeros_like(w[..., 0])
+    return torch.stack([
+        torch.stack([zeros, -w[..., 2], w[..., 1]], -1),
+        torch.stack([w[..., 2], zeros, -w[..., 0]], -1),
+        torch.stack([-w[..., 1], w[..., 0], zeros], -1),
+    ], dim=-2)
+
+
+def _rodrigues(w: torch.Tensor):
+    """(theta [...,1,1], W = hat(w / theta), I, R) with theta safe near 0."""
+    theta = sqrt_f32((w * w).sum(-1, keepdim=True) + 1e-24)
+    th = theta[..., None]
+    W = hat(w / theta)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    R = eye + torch.sin(th) * W + (1.0 - torch.cos(th)) * (W @ W)
+    return th, W, eye, R
+
+
+def exp_so3(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula, numerically safe near theta=0."""
+    return _rodrigues(w)[3]
+
+
+def _se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """[...,3,3] rotations and [...,3,1] translations -> [...,4,4]."""
+    top = torch.cat([R, t], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(top.shape[:-2] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def orthonormalize_se3(T: torch.Tensor) -> torch.Tensor:
+    """Project the rotation block of [...,4,4] transforms back onto SO(3)
+    (Gram-Schmidt on columns), keeping the translation."""
+    R = T[..., :3, :3]
+    x = R[..., :, 0]
+    x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    y = R[..., :, 1]
+    y = y - (x * y).sum(-1, keepdim=True) * x
+    y = y / torch.linalg.vector_norm(y, dim=-1, keepdim=True)
+    z = torch.linalg.cross(x, y, dim=-1)
+    return _se3(torch.stack([x, y, z], dim=-1), T[..., :3, 3:4])
+
+
+def exp_se3(xi: torch.Tensor) -> torch.Tensor:
+    """[...,6] twist (v, w) -> [...,4,4], with the closed-form V matrix."""
+    v, w = xi[..., :3], xi[..., 3:]
+    th, W, eye, R = _rodrigues(w)
+    WW = W @ W
+    V = eye + (1.0 - torch.cos(th)) / th * W + (th - torch.sin(th)) / th * WW
+    return _se3(R, V @ v[..., None])
