@@ -33,24 +33,41 @@ Phases (each raises on failure, so the script exits non-zero):
      RR > 70, the card's poses against the port's CPU poses, and the
      time per registered pair;
   9. time cc_labels and ri3_labels beside their plain versions on the
-     frame-0 grid.
+     frame-0 grid;
+ 10. the streaming SLAM engine at full width with bench.py's [slam]
+     EngineConfig: 36 frames of the loop scene (7 windows of 6) fed one
+     scan at a time through SlamEngine.feed, then finalize(final_erasor=
+     True). It checks that cluster_labels ran on every frame, that no
+     overflow or fallback counter moved, that a loop edge spans the
+     revisit, that the pose graph beats the chained odometry's ATE, that
+     ERASOR removed map points, and tests/test_engine.py's RR > 88 /
+     PR > 98 on the judged frames; resumes a checkpoint taken after
+     window 3 on the card and holds it to the uninterrupted run
+     (tests/test_engine.py:195-202); steps the first two windows on the
+     CPU from the card's state (window 2 through a card checkpoint) and
+     holds the card's windows to them; and times the steady windows
+     (ms/frame) and the parts of one steady window with CUDA events.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from dr_using_scv_od_tpu_torch import config, interop
 from dr_using_scv_od_tpu_torch.eval import metrics
-from dr_using_scv_od_tpu_torch.models import odometry, pipeline
+from dr_using_scv_od_tpu_torch.models import (engine, odometry, pipeline,
+                                              posegraph, scan_context)
 from dr_using_scv_od_tpu_torch.ops import cc_labels as cc
 from dr_using_scv_od_tpu_torch.ops import cluster_labels as cl
 from dr_using_scv_od_tpu_torch.ops import clustering, cuda_build
@@ -66,6 +83,17 @@ CHECK_REPS = 10    # the atomics' order varies from launch to launch
 F_ODOM = 4         # tests/test_odometry.py's window
 POSE_ATOL = 5e-4   # card vs CPU poses (tests/test_torch_odometry.py)
 KERNELS = (cl.cluster_labels, cc.cc_labels, ri3.ri3_labels)
+SLAM_FRAMES = 36   # 7 windows of 6: the loop scene's revisit is frame 24
+SLAM_CKPT_WINDOW = 3
+SLAM_CPU_WINDOWS = 2
+# card vs CPU, one window stepped from the same state: rotation entries
+# within POSE_ATOL; translations within 1e-3 m. Five chained registrations
+# that stop at a step norm of 1e-4 leave the translations to the last bits
+# of their sums: the card and the CPU differ by 3.4e-4 m in window 1, and
+# summing GICP's accumulators in float64 instead moved that to 5.4e-4 m
+# (rotation 6e-6 in both).
+SLAM_T_ATOL = 1e-3
+LOOP_FRAMES = 24
 
 
 def _log(msg: str) -> None:
@@ -195,6 +223,235 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def slam_config() -> engine.EngineConfig:
+    """bench.py's [slam] EngineConfig (bench.py:309-329): every scan of the
+    loop scene keyframes (kf_dist 4 m < its 4.7 m step) through the gated
+    path, periodic ERASOR."""
+    return engine.EngineConfig(
+        window=6, max_keyframes=128, submap_points=4096, local_map_kf=3,
+        kf_dist=4.0, loop_min_gap=8, loop_min_score=0.84, max_loop_edges=32,
+        erasor=dataclasses.replace(engine.erasor_mod.ErasorConfig(),
+                                   max_range=45.0, max_pts_per_bin=256),
+        erasor_every=4)
+
+
+def slam_window(n_frames: int, n_points: int):
+    """bench.py's [slam] scene: a 24-frame circle of radius 18 m, two
+    moving cars."""
+    spec = synthetic.SceneSpec(trajectory="loop", loop_frames=LOOP_FRAMES,
+                               loop_radius=18.0, n_moving_cars=2)
+    return synthetic.render_window(synthetic.make_scene(spec), n_frames,
+                                   n_points)
+
+
+def drive_slam(eng, scans, frames, on_window=None, timed=False):
+    """Feed `frames` of `scans` (xyz, intensity, valid stacked on the frame
+    axis) one at a time. Returns ({frame: removed [N] bool} of the judged
+    frames, [(window, ms, new frames)] when `timed`: CUDA events around
+    each feed that ran a window)."""
+    xyz, inten, valid = scans
+    removed, times = {}, []
+    for f in frames:
+        if timed:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        out = eng.feed(xyz[f], inten[f], valid[f])
+        if out is None:
+            continue
+        if timed:
+            end.record()
+            torch.cuda.synchronize()
+            new = out.poses.shape[0] - (0 if eng.windows == 1 else 1)
+            times.append((eng.windows, start.elapsed_time(end), new))
+        base = eng.n_frames - out.poses.shape[0]
+        for k in range(out.removed.shape[0]):
+            removed[base + k] = out.removed[k]
+        if on_window is not None:
+            on_window(eng)
+    return removed, times
+
+
+def slam_accuracy(win, removed, cfg):
+    """tests/test_engine.py:104-131: RR over the in-grid moving-car points
+    and PR over the static points of every judged frame."""
+    dyn_total = dyn_removed = stat_total = stat_removed = 0
+    for f, mask in removed.items():
+        lab, val = win["label"][f], win["valid"][f]
+        rng2d = np.linalg.norm(win["xyz"][f][:, :2], axis=1)
+        in_grid = (rng2d > cfg.grid.min_dis) & (rng2d < cfg.grid.max_dis)
+        dyn = val & in_grid & (lab == synthetic.LABEL_CAR_MOVING)
+        stat = val & (lab != synthetic.LABEL_CAR_MOVING)
+        dyn_total += int(dyn.sum())
+        dyn_removed += int((dyn & mask).sum())
+        stat_total += int(stat.sum())
+        stat_removed += int((stat & mask).sum())
+    _check(dyn_total > 0, "no in-grid moving-car points were judged")
+    return (100.0 * dyn_removed / dyn_total,
+            100.0 * (stat_total - stat_removed) / stat_total)
+
+
+def slam_phase(dev, cfg):
+    """Phase 10. Returns the cluster_labels launches of the engine run."""
+    ec = slam_config()
+    N = cfg.shapes.max_points
+    W = ec.window
+    win = slam_window(SLAM_FRAMES, N)
+    keys = ("xyz", "intensity", "valid")
+    scans = tuple(torch.as_tensor(win[k], device=dev) for k in keys)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="slam_ckpt_"))
+    states, snap = {}, {}
+
+    def on_window(eng):
+        states[eng.windows] = eng.state       # states are never mutated
+        if eng.windows == SLAM_CKPT_WINDOW or eng.windows < SLAM_CPU_WINDOWS:
+            snap[eng.windows] = (eng.checkpoint(
+                str(ckpt_dir / f"engine_{eng.windows}")), eng.n_frames)
+
+    for k in KERNELS:
+        k.launches = 0
+    eng = engine.SlamEngine(cfg, ec, device=dev)
+    removed, times = drive_slam(eng, scans, range(SLAM_FRAMES), on_window,
+                                timed=True)
+    eng.finalize(final_erasor=True)
+    torch.cuda.synchronize()
+    launches = cl.cluster_labels.launches
+    in_windows = sum(o.poses.shape[0] for o in eng.outputs)
+    _log(f"slam: {eng.windows} windows, {eng.n_frames} frames, "
+         f"{launches} cluster_labels launches ({in_windows} frames in "
+         f"windows)")
+    _check(launches >= in_windows,
+           "the engine did not go through cluster_labels on every frame")
+
+    # ---- the run's own checks
+    st = eng.state
+    counters = {name: int(getattr(st, name)) for name in (
+        "kf_overflow", "odo_fallbacks", "row_overflow", "point_overflow",
+        "submap_overflow")}
+    _log(f"slam counters: {counters}, erasor_removed "
+         f"{int(st.erasor_removed)}")
+    _check(not any(counters.values()), f"a counter moved: {counters}")
+    _check(int(st.erasor_removed) > 0, "ERASOR removed no map point")
+    n = eng.n_keyframes
+    kff = eng.kf_frames()
+    nl = int(st.n_loops)
+    spans = [(int(kff[i]), int(kff[j])) for i, j in zip(
+        st.loop_i[:nl].tolist(), st.loop_j[:nl].tolist())]
+    _log(f"slam: {n} keyframes, {nl} loop edges (frame pairs {spans})")
+    _check(any(abs(fj - fi - LOOP_FRAMES) <= 4 for fi, fj in spans),
+           "no accepted loop edge spans the revisit")
+    gt = torch.from_numpy(win["poses"][kff])
+    ate_pgo = float(odometry.ate_rmse(torch.from_numpy(eng.poses()), gt))
+    chain = posegraph.odometry_chain(st.rel_T[1:n].cpu())
+    ate_chain = float(odometry.ate_rmse(chain, gt))
+    _log(f"slam ATE: pose graph {ate_pgo:.5f} m, chained odometry "
+         f"{ate_chain:.5f} m")
+    _check(ate_pgo < ate_chain, "the pose graph did not beat the chained "
+           "odometry's ATE")
+    rr, pr = slam_accuracy(win, removed, cfg)
+    _log(f"slam judged frames: RR {rr:.3f} (in-grid) PR {pr:.3f} over "
+         f"{len(removed)} frames")
+    _check(rr > 88.0 and pr > 98.0, "RR > 88 / PR > 98 missed")
+
+    # ---- checkpoint after window 3, resumed on the card
+    path, done = snap[SLAM_CKPT_WINDOW]
+    eng_r = engine.SlamEngine.resume(path, cfg, ec, device=dev)
+    drive_slam(eng_r, scans, range(done, SLAM_FRAMES))
+    eng_r.finalize(final_erasor=True)
+    dpose = float(np.abs(eng_r.poses() - eng.poses()).max())
+    _log(f"slam resume after window {SLAM_CKPT_WINDOW}: poses differ by "
+         f"{dpose:.3e}")
+    _check(eng_r.n_frames == eng.n_frames, "resumed run frame count")
+    _check(np.allclose(eng_r.poses(), eng.poses(), rtol=1e-5, atol=1e-5),
+           "resumed poses differ from the uninterrupted run")
+    _check(torch.equal(eng_r.state.submap_valid, st.submap_valid),
+           "resumed submap_valid differs")
+    _check(bool(((eng_r.state.desc - st.desc).abs() <= 1e-6).all()),
+           "resumed descriptors differ")
+    _check(int(eng_r.state.track_counter) == int(st.track_counter),
+           "resumed track_counter differs")
+
+    # ---- the first windows against the port's CPU run, each stepped from
+    # the same state: window 1 from the start, window k from the card's
+    # checkpoint after window k - 1 resumed on the CPU (so the comparison
+    # holds the window step, not the drift that odometry carries forward)
+    cpu_scans = tuple(torch.from_numpy(win[k]) for k in keys)
+    for k in range(SLAM_CPU_WINDOWS):
+        if k == 0:
+            eng_c, lo = engine.SlamEngine(cfg, ec, device="cpu"), 0
+        else:
+            path, lo = snap[k]
+            eng_c = engine.SlamEngine.resume(path, cfg, ec, device="cpu")
+        hi = lo + (W if k == 0 else W - 1)
+        drive_slam(eng_c, cpu_scans, range(lo, hi))
+        g, c = eng.outputs[k], eng_c.outputs[0]
+        n_valid = int(win["valid"][lo:hi].sum())
+        drot = float(np.abs(g.poses[:, :3, :3] - c.poses[:, :3, :3]).max())
+        dt = float(np.abs(g.poses[:, :3, 3] - c.poses[:, :3, 3]).max())
+        n_rm = int((g.removed != c.removed).sum())
+        _log(f"slam window {k + 1}, card vs cpu from the same state: "
+             f"rotation {drot:.3e}, translation {dt:.3e} m, removed differs "
+             f"on {n_rm} points")
+        _check(drot < POSE_ATOL and dt < SLAM_T_ATOL,
+               f"window {k + 1}: card and cpu poses differ by >= "
+               f"{POSE_ATOL} (rotation) or {SLAM_T_ATOL} m")
+        for name in ("is_kf", "kf_slot", "loop_accepted", "loop_pair"):
+            _check(np.array_equal(getattr(g, name), getattr(c, name)),
+                   f"window {k + 1}: card and cpu {name} differ")
+        _check(n_rm <= n_valid // 1000, f"window {k + 1}: removed differs "
+               "on > 0.1 % of the valid points")
+    for p in ckpt_dir.iterdir():
+        p.unlink()
+    ckpt_dir.rmdir()
+
+    # ---- timing: steady windows, and the parts of one steady window
+    steady = [(w, ms, new) for w, ms, new in times if w > 1]
+    ms_frame = sum(ms for _, ms, _ in steady) / sum(n for _, _, n in steady)
+    _log("slam windows (window, ms, new frames): "
+         + ", ".join(f"({w}, {ms:.1f}, {n})" for w, ms, n in times))
+    _log(f"slam: {ms_frame:.3f} ms/frame over the {len(steady)} steady "
+         f"windows (ERASOR every {ec.erasor_every}, PGO where a loop "
+         f"landed)")
+    wb = max(w for w, _, _ in times if any(eng.outputs[w - 1].loop_accepted))
+    st0 = states[wb - 1]
+    out = eng.outputs[wb - 1]
+    lo = W + (wb - 2) * (W - 1) - 1
+    xs, ins, vs = (t[lo:lo + W] for t in scans)
+    poses_win = torch.as_tensor(out.poses, device=dev)
+    slots = torch.as_tensor(out.kf_slot, device=dev)
+    is_kf = torch.as_tensor(out.is_kf, device=dev)
+    removed_w = torch.as_tensor(out.removed, device=dev)
+    frame_ids = torch.arange(lo, lo + W, dtype=torch.int32, device=dev)
+
+    def loops():
+        descs = torch.stack([scan_context.descriptor(xs[f], vs[f], ec.desc)
+                             for f in range(W)])
+        return engine._window_loops(st0, xs, vs, descs, slots, is_kf, False,
+                                    ec, cfg)
+
+    parts = {
+        "odometry": lambda: engine._window_odometry(st0, xs, vs, False, ec,
+                                                    cfg),
+        "run_window": lambda: pipeline.run_window(
+            xs, ins, vs, poses_win, cfg,
+            init_track=(st0.track_table, st0.track_grid,
+                        st0.track_counter)),
+        "submaps": lambda: engine._insert_submaps(
+            st0, xs[:-1], vs[:-1], removed_w, st0.poses, poses_win[:-1],
+            slots[:-1], is_kf[:-1], frame_ids[:-1], ec),
+        "loops": loops,
+        "pgo": lambda: engine._run_pgo(st, st.n, ec),
+        "erasor": lambda: engine._erasor_pass(st0, xs[-1], vs[-1],
+                                              st0.last_pose, ec),
+        "whole window": lambda: engine.process_window(
+            st0, xs, ins, vs, False, False, ec, cfg),
+    }
+    split = {name: _time_ms(fn, TIME_REPS) for name, fn in parts.items()}
+    _log(f"slam window {wb} (a loop landed) parts, ms: "
+         + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    return launches
 
 
 def main() -> int:
@@ -431,7 +688,12 @@ def main() -> int:
              f"plain {timed[name][1]:.4f} ms")
     timed["cluster_labels"] = (kernel_ms, plain_ms)
 
-    launch_counts = {"cluster_labels": launches,
+    # ---- 10. the streaming SLAM engine at full width
+    slam_launches = slam_phase(dev, cfg)
+
+    # cluster_labels: launches of this slice's path, the engine; phase 3
+    # counted run_window's
+    launch_counts = {"cluster_labels": slam_launches,
                      "cc_labels": prof_launches["cc_labels"],
                      "ri3_labels": prof_launches["ri3_labels"]}
     errs["cluster_labels"] = max_err

@@ -2,22 +2,25 @@
 
 The system has no learned weights: its parameters are the frozen
 `PipelineConfig`, the streaming tracking carry (table, label_grid,
-counter) that `run_window(init_track=...)` takes, and the GICP state (a
-voxel map and its finalized target). These functions rebuild them from
-plain Python / numpy values (`dataclasses.asdict` of a JAX config, arrays
-fetched with `np.asarray`), so nothing here imports JAX.
+counter) that `run_window(init_track=...)` takes, the GICP state (a
+voxel map and its finalized target), and the SLAM engine's `EngineConfig`
+and `EngineState`. These functions rebuild them from plain Python / numpy
+values (`dataclasses.asdict` of a JAX config, arrays fetched with
+`np.asarray`, an engine state's `jax.tree.leaves`), so nothing here
+imports JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import typing
-from typing import Mapping, Tuple
+from typing import List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .config import PipelineConfig
+from .models import engine
 from .models.gicp import GicpTarget, VoxelMap
 from .types import ClusterTable
 
@@ -106,3 +109,26 @@ def gicp_target_from_numpy(fields: Mapping[str, np.ndarray],
     return GicpTarget(mean=_tensor(fields["mean"], torch.float32, device),
                       weight=_tensor(fields["weight"], torch.float32, device),
                       valid=_tensor(fields["valid"], torch.bool, device))
+
+
+def engine_config_from_reference(d: Mapping) -> engine.EngineConfig:
+    """The port's EngineConfig (with its nested DescriptorConfig and
+    ErasorConfig) from `dataclasses.asdict` of a JAX EngineConfig."""
+    return _build(engine.EngineConfig, d)
+
+
+def engine_state_from_numpy(leaves: Sequence[np.ndarray],
+                            device: torch.device | str
+                            ) -> engine.EngineState:
+    """An EngineState on `device` from a JAX EngineState's leaves in
+    `jax.tree.leaves` order (each fetched with np.asarray); every leaf
+    keeps its dtype."""
+    return engine.state_from_leaves(
+        [torch.from_numpy(np.array(a)).to(device) for a in leaves])
+
+
+def engine_state_to_numpy(state: engine.EngineState) -> List[np.ndarray]:
+    """The state's leaves as numpy arrays, in the JAX package's
+    `jax.tree.leaves` order (`jax.tree.unflatten` of the JAX state's
+    treedef rebuilds a JAX EngineState from them)."""
+    return [t.detach().cpu().numpy() for t in engine.state_leaves(state)]

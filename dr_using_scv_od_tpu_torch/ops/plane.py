@@ -1,7 +1,7 @@
-"""Batched closed-form 3x3 symmetric eigendecomposition (counterpart of
-dr_using_scv_od_tpu/ops/plane.py:17-94), written in scalar planes: each
-matrix entry and vector component is its own [...] tensor, and only the
-results are stacked.
+"""Batched closed-form 3x3 symmetric eigendecomposition and least-squares
+plane fits (counterpart of dr_using_scv_od_tpu/ops/plane.py:17-129). The
+eigensolver is written in scalar planes: each matrix entry and vector
+component is its own [...] tensor, and only the results are stacked.
 """
 
 from __future__ import annotations
@@ -91,3 +91,28 @@ def eigh3x3(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     evecs = torch.stack([torch.stack(v, dim=-1)
                          for v in (v_lo, v_mid, v_hi)], dim=-1)
     return evals, evecs
+
+
+def masked_mean_cov(xyz: torch.Tensor, mask: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mean [...,3], population covariance [...,3,3] and count [...] of
+    [..., K, 3] points under a [..., K] mask."""
+    m = mask.to(xyz.dtype)
+    n = m.sum(-1)
+    safe_n = torch.clamp_min(n, 1.0)
+    mean = (xyz * m[..., None]).sum(-2) / safe_n[..., None]
+    d = (xyz - mean[..., None, :]) * m[..., None]
+    cov = torch.einsum('...ki,...kj->...ij', d, d) / safe_n[..., None, None]
+    return mean, cov, n
+
+
+def fit_plane(xyz: torch.Tensor, mask: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """Least-squares plane per batch: (normal [...,3] with n_z >= 0,
+    mean [...,3], eigenvalues ascending [...,3], n_pts [...])."""
+    mean, cov, n = masked_mean_cov(xyz, mask)
+    evals, evecs = eigh3x3(cov)
+    normal = evecs[..., :, 0]          # smallest-eigenvalue direction
+    sign = torch.where(normal[..., 2] < 0, -1.0, 1.0)
+    return normal * sign[..., None], mean, evals, n

@@ -32,9 +32,22 @@ def segment_sum(x: torch.Tensor, ids: torch.Tensor, num: int
     segment is summed in one sequential pass (`segment_reduce`), so the
     float result does not depend on thread timing, and each sum runs in
     row order, as a sequential scatter-add does."""
+    return segment_sum_planned(x, *segment_plan(ids, num), num)
+
+
+def segment_plan(ids: torch.Tensor, num: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, lengths) of `segment_sum` over `ids`, for callers that sum
+    several arrays over the same ids: the stable sort by id, and the row
+    count of each id in [0, num] (num is the dropped bucket)."""
     seg = _bucket(ids, num)
     seg_sorted, order = torch.sort(seg, stable=True)
-    lengths = torch.bincount(seg_sorted, minlength=num + 1)
+    return order, torch.bincount(seg_sorted, minlength=num + 1)
+
+
+def segment_sum_planned(x: torch.Tensor, order: torch.Tensor,
+                        lengths: torch.Tensor, num: int) -> torch.Tensor:
+    """`segment_sum` with the plan of `segment_plan`."""
     # unsafe=True skips a host-synchronising check of lengths.sum(); the
     # lengths count exactly the rows of x
     return torch.segment_reduce(x[order], "sum", lengths=lengths,

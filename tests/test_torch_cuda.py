@@ -10,14 +10,25 @@ must equal their plain versions' int32 labels in every launch. Poses of
 entry of T (the [30, N] sums reduce in another order on the card; the port
 and the JAX package differ by < 1e-6 on these clouds,
 tests/test_torch_gicp.py).
+
+The SLAM engine's parts: two runs on the card are identical (no scatter of
+the engine path adds floats through atomics); `posegraph.optimize` on the
+card agrees with the CPU within 1e-4 where its CG converges, ERASOR's
+`clean_map` exactly, and one engine window within 5e-4 on the poses,
+identical keyframe integers and `removed` on at most 0.1 % of the valid
+points.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from dr_using_scv_od_tpu_torch import config, interop
-from dr_using_scv_od_tpu_torch.models import gicp, pipeline
+from dr_using_scv_od_tpu_torch.models import (engine, erasor, gicp, pipeline,
+                                              posegraph)
+from dr_using_scv_od_tpu_torch.ops import geometry
 from dr_using_scv_od_tpu_torch.ops import cc_labels as cc
 from dr_using_scv_od_tpu_torch.ops import cluster_labels as cl
 from dr_using_scv_od_tpu_torch.ops import clustering
@@ -173,3 +184,130 @@ def test_register_on_card_matches_cpu(cuda_device):
     assert gpu.T.device == cuda_device
     assert float((gpu.T.cpu() - cpu.T).abs().max()) < 5e-4
     assert abs(int(gpu.n_corr) - int(cpu.n_corr)) <= 0.01 * int(cpu.n_corr)
+
+
+def _square_graph():
+    """tests/test_posegraph.py's noisy square with its closing edge, built
+    with the port on the CPU."""
+    rng = np.random.default_rng(0)
+    F, n_side = 20, 5
+    true, noisy = [], []
+    for k in range(F - 1):
+        xi = np.zeros(6, np.float32)
+        xi[0] = 1.0
+        if (k + 1) % n_side == 0:
+            xi[5] = np.pi / 2
+        dxi = np.concatenate([rng.normal(scale=0.05, size=3),
+                              rng.normal(scale=0.01, size=3)])
+        rel = geometry.exp_se3(torch.from_numpy(xi))
+        true.append(rel)
+        noisy.append(geometry.exp_se3(torch.from_numpy(
+            dxi.astype(np.float32))) @ rel)
+    gt = posegraph.odometry_chain(torch.stack(true))
+    rels = torch.stack(noisy)
+    T_loop = geometry.inverse_se3(gt[F - 1]) @ gt[0]
+    return posegraph.make_odometry_graph(
+        posegraph.odometry_chain(rels), rels,
+        loop_i=torch.tensor([F - 1]), loop_j=torch.tensor([0]),
+        loop_T=T_loop[None], loop_w=torch.tensor([5.0]))
+
+
+def test_posegraph_on_card_is_deterministic(cuda_device):
+    pg = _square_graph()
+    pg_gpu = posegraph.PoseGraph(*(t.to(cuda_device) for t in pg))
+    # the engine's solve (8 x 32): two runs on the card are identical
+    a = posegraph.optimize(pg_gpu, gn_iters=8, cg_iters=32)
+    b = posegraph.optimize(pg_gpu, gn_iters=8, cg_iters=32)
+    assert a.poses.device == cuda_device
+    assert torch.equal(a.poses, b.poses)
+    assert torch.equal(a.final_error, b.final_error)
+    # against the CPU where CG converges: with 32 CG steps it stops short
+    # on this 20-node loop and the poses follow the last bits of its dot
+    # products (float32 and float64 differ by 3.6e-3 there, by 6e-6 at
+    # 15 x 60 on the CPU)
+    a = posegraph.optimize(pg_gpu, gn_iters=15, cg_iters=60)
+    cpu = posegraph.optimize(pg, gn_iters=15, cg_iters=60)
+    assert float((a.poses.cpu() - cpu.poses).abs().max()) < 1e-4
+
+
+def _erasor_scene(rng, with_car):
+    """tests/test_erasor.py's ground disc, wall and optional car box."""
+    n_g = 8000
+    r = np.sqrt(rng.uniform(4.0, 40.0 ** 2, n_g))
+    th = rng.uniform(0, 2 * np.pi, n_g)
+    parts = [np.stack([r * np.cos(th), r * np.sin(th),
+                       rng.normal(scale=0.02, size=n_g) - 1.7], 1),
+             np.stack([rng.uniform(-15, 15, 2000),
+                       np.full(2000, 20.0)
+                       + rng.normal(scale=0.02, size=2000),
+                       rng.uniform(-1.7, 5, 2000)], 1)]
+    if with_car:
+        parts.append(np.stack([rng.uniform(8, 12.2, 1200),
+                               rng.uniform(-0.9, 0.9, 1200),
+                               rng.uniform(-1.7, -0.2, 1200)], 1))
+    return np.concatenate(parts).astype(np.float32)
+
+
+@pytest.mark.parametrize("car_left", [True, False],
+                         ids=["departed-car", "static"])
+def test_clean_map_on_card_matches_cpu(cuda_device, car_left):
+    rng = np.random.default_rng(0)
+    map_pts = _erasor_scene(rng, with_car=True)
+    scan_pts = _erasor_scene(rng, with_car=not car_left)
+    cfg = erasor.ErasorConfig(max_range=45.0, max_pts_per_bin=256)
+
+    def run(device):
+        t = [torch.from_numpy(a).to(device) for a in (
+            map_pts, np.ones(len(map_pts), bool), scan_pts,
+            np.ones(len(scan_pts), bool), np.zeros(3, np.float32))]
+        return erasor.clean_map(*t, cfg)
+
+    a, b, cpu = run(cuda_device), run(cuda_device), run("cpu")
+    assert a.dynamic.device == cuda_device
+    assert torch.equal(a.dynamic, b.dynamic)
+    assert torch.equal(a.dynamic.cpu(), cpu.dynamic)
+    assert torch.equal(a.candidate_bins.cpu(), cpu.candidate_bins)
+    assert int(a.bin_overflow) == int(cpu.bin_overflow)
+    if car_left:
+        assert int(a.dynamic.sum()) > 0
+
+
+def test_engine_window_on_card_matches_cpu(cuda_device):
+    """The first window of tests/test_torch_engine.py's run: card twice,
+    then the CPU."""
+    cfg = config.semantickitti()
+    cfg = cfg.replace(
+        grid=dataclasses.replace(cfg.grid, sector_res=2.4, azimuth_res=4.0),
+        shapes=dataclasses.replace(cfg.shapes, max_points=8192,
+                                   max_clusters=128, max_track_points=2048),
+        gicp=dataclasses.replace(cfg.gicp, xy_extent=48.0))
+    ec = engine.EngineConfig(window=4, max_keyframes=16, submap_points=1024,
+                             local_map_kf=2, kf_dist=6.0, kf_rot=0.5,
+                             loop_min_gap=4)
+    spec = synthetic.SceneSpec(
+        trajectory="loop", loop_frames=24, loop_radius=18.0,
+        ground_pts=6000, building_pts=800, tree_pts=200, car_pts=250,
+        n_moving_cars=2)
+    win = synthetic.render_window(synthetic.make_scene(spec), 4, 8192)
+
+    def run(device):
+        eng = engine.SlamEngine(cfg, ec, device=device)
+        for f in range(4):
+            out = eng.feed(win["xyz"][f], win["intensity"][f],
+                           win["valid"][f])
+        assert out is not None and eng.state.poses.device.type == \
+            torch.device(device).type
+        return out, eng.state
+
+    before = cl.cluster_labels.launches
+    (a, sa), (b, sb), (c, sc) = run(cuda_device), run(cuda_device), run("cpu")
+    assert cl.cluster_labels.launches == before + 8
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    for name in ("is_kf", "kf_slot", "n_dynamic"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(c, name))
+    assert float(np.abs(a.poses - c.poses).max()) < 5e-4
+    assert int((a.removed != c.removed).sum()) <= win["valid"].sum() // 1000
+    for name in ("n", "frames", "submap_fill", "track_counter",
+                 "odo_fallbacks"):
+        assert torch.equal(getattr(sa, name).cpu(), getattr(sc, name)), name
