@@ -17,7 +17,9 @@ Phases (each raises on failure, so the script exits non-zero):
      labels, in each of 10 launches) on every frame's grid and on
      adversarial grids;
   5. time run_window (ms/frame, 6-frame window) and the kernel beside its
-     plain version on a full-size grid, with CUDA events;
+     plain version on a full-size grid, with CUDA events, and the kernel's
+     device time (CUDA events around a CUDA graph of 20 calls) against its
+     bound;
   6. hold cc_labels and ri3_labels against their plain versions (identical
      labels in each of 10 launches) on every frame grid, the cases of
      tests/test_cc_pallas.py and tests/test_ri3_pallas.py, and RI3 on a
@@ -33,7 +35,7 @@ Phases (each raises on failure, so the script exits non-zero):
      RR > 70, the card's poses against the port's CPU poses, and the
      time per registered pair;
   9. time cc_labels and ri3_labels beside their plain versions on the
-     frame-0 grid;
+     frame-0 grid, and their device times against their bounds;
  10. the streaming SLAM engine at full width with bench.py's [slam]
      EngineConfig: 36 frames of the loop scene (7 windows of 6) fed one
      scan at a time through SlamEngine.feed, then finalize(final_erasor=
@@ -46,7 +48,14 @@ Phases (each raises on failure, so the script exits non-zero):
      (tests/test_engine.py:195-202); steps the first two windows on the
      CPU from the card's state (window 2 through a card checkpoint) and
      holds the card's windows to them; and times the steady windows
-     (ms/frame) and the parts of one steady window with CUDA events.
+     (ms/frame) and the parts of one steady window with CUDA events;
+ 11. hold cluster_labels and ri3_labels against their plain versions
+     (identical labels in each of 10 launches) on full-size seam grids of
+     the tile plan (ops/tile_plan.seam_grids: snakes through every tile
+     along each axis, gated cheb-2 pairs across every tile face, a
+     60 %-dense random grid, a voxel at every tile corner), on the
+     60 x 72 x 300 grid and on 61 x 75 x 301, whose sides are no multiple
+     of the tile.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -72,7 +81,8 @@ from dr_using_scv_od_tpu_torch.ops import cc_labels as cc
 from dr_using_scv_od_tpu_torch.ops import cluster_labels as cl
 from dr_using_scv_od_tpu_torch.ops import clustering, cuda_build
 from dr_using_scv_od_tpu_torch.ops import ri3_labels as ri3
-from dr_using_scv_od_tpu_torch.tools import profile_stages
+from dr_using_scv_od_tpu_torch.ops import tile_plan
+from dr_using_scv_od_tpu_torch.tools import kernel_times, profile_stages
 from dr_using_scv_od_tpu_torch.utils import synthetic
 
 F_CHECK = 5        # window judged against the accuracy floors
@@ -94,6 +104,7 @@ SLAM_CPU_WINDOWS = 2
 # (rotation 6e-6 in both).
 SLAM_T_ATOL = 1e-3
 LOOP_FRAMES = 24
+SEAM_SHAPES = ((60, 72, 300), (61, 75, 301))
 
 
 def _log(msg: str) -> None:
@@ -212,6 +223,18 @@ def ri3_cases():
     out.append(("ri3-far-range-shrink", occ, av, var, 0.6, False,
                 (1, 14, 5), (1, 14, 7)))
     return out
+
+
+def _device_ms(name, fn, G, M) -> float:
+    """Device ms per call of kernel `name`: CUDA events around the replay
+    of a CUDA graph that holds KERNEL_REPS wrapper calls (the device's work
+    and the launch gaps inside the graph, no host), logged with its bound.
+    tools/kernel_times.py splits it by CUDA kernel with torch.profiler."""
+    ms = kernel_times.graph_ms(fn, KERNEL_REPS)
+    bound = kernel_times.bound_ms(name, G, M)
+    _log(f"{name} device time {ms:.4f} ms per call (bound {bound:.6f} ms, "
+         f"{100 * bound / ms:.2f} % of it; G = {G}, M = {M})")
+    return ms
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -566,10 +589,13 @@ def main() -> int:
                         TIME_REPS)
     _log(f"cluster_labels on the frame-0 grid {tuple(cfg.grid.shape)}: "
          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    G0, M0 = cfg.grid.bin_num, int(frame0[0].sum())
+    device = {"cluster_labels": _device_ms(
+        "cluster_labels", lambda: cl.cluster_labels(*frame0), G0, M0)}
 
     # ---- 6. kernels 2 and 3 against their plain versions, and the
     # identities that tie them to kernel 1
-    errs = {"cc_labels": 0, "ri3_labels": 0}
+    errs = {"cluster_labels": 0, "cc_labels": 0, "ri3_labels": 0}
 
     def hold(name, kernel, plain, args):
         want = plain(*args).long()
@@ -686,17 +712,37 @@ def main() -> int:
                        _time_ms(lambda: plain(*args), TIME_REPS))
         _log(f"{name} on the frame-0 grid: kernel {timed[name][0]:.4f} ms, "
              f"plain {timed[name][1]:.4f} ms")
+        device[name] = _device_ms(name, lambda: kernel(*args), G0, M0)
     timed["cluster_labels"] = (kernel_ms, plain_ms)
 
     # ---- 10. the streaming SLAM engine at full width
     slam_launches = slam_phase(dev, cfg)
+
+    # ---- 11. kernels 1 and 3 on full-size seam grids of the tile plan
+    n_seam = 0
+    for shape in SEAM_SHAPES:
+        for name, occ, av, var in tile_plan.seam_grids(
+                shape, seg.search_c, seg.intensity_cov, seg.intensity_diff):
+            occ3 = torch.as_tensor(occ, device=dev)
+            av, var = (torch.as_tensor(x, device=dev) for x in (av, var))
+            args = (occ3, av, var, seg.search_c, seg.intensity_cov,
+                    seg.intensity_diff, seg.far_range_frac)
+            hold(f"seam {shape} {name}", cl.cluster_labels,
+                 cl.cluster_labels_reference, args)
+            hold(f"seam {shape} {name}", ri3.ri3_labels,
+                 ri3.ri3_labels_reference,
+                 (clustering.connected_components(occ3),
+                  occ3.reshape(-1).int(), av, var, shape) + ri3_args)
+            n_seam += 1
+    _log(f"cluster_labels and ri3_labels == plain on {n_seam} full-size seam "
+         f"grids x {CHECK_REPS} launches")
 
     # cluster_labels: launches of this slice's path, the engine; phase 3
     # counted run_window's
     launch_counts = {"cluster_labels": slam_launches,
                      "cc_labels": prof_launches["cc_labels"],
                      "ri3_labels": prof_launches["ri3_labels"]}
-    errs["cluster_labels"] = max_err
+    errs["cluster_labels"] = max(errs["cluster_labels"], max_err)
     replaces = {
         "cluster_labels": "dr_using_scv_od_tpu/ops/pallas/fused_seg.py:56",
         "cc_labels": "dr_using_scv_od_tpu/ops/pallas/cc_kernel.py:49",
@@ -711,6 +757,11 @@ def main() -> int:
         "max_abs_err": errs[name],
         "ms": timed[name][0],
         "plain_ms": timed[name][1],
+        "device_ms": device[name],
+        "bound_ms": kernel_times.bound_ms(name, G0, M0),
+        "bound_by": "bytes",
+        "share_of_bound": kernel_times.bound_ms(name, G0, M0) / device[name],
+        "library_ms": None,
     } for name in replaces]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 // Device union-find over a flat [A, R, S] voxel grid (flat id
-// g = (a * R + r) * S + s), shared by the port's three label kernels:
-// cluster_labels.cu, cc_labels.cu and ri3_labels.cu.
+// g = (a * R + r) * S + s). cc_labels.cu runs it over the whole grid
+// (init, hook, compress); tiled_union_find.cuh, behind cluster_labels.cu
+// and ri3_labels.cu, runs find_root and unite on shared and global memory.
 //
 // label[g] is the parent of g. Parents only ever point to smaller ids, so
 // each root is the minimum id of its tree, and after `compress_kernel` every
@@ -71,68 +72,6 @@ __global__ void compress_kernel(volatile int* label, int n) {
   int next;
   while (cur > (next = label[cur])) cur = next;
   label[g] = cur;
-}
-
-// Occupancy views: a bool grid, or the voxel point counts (occupied = > 0).
-struct ByteOcc {
-  const uint8_t* p;
-  __device__ __forceinline__ bool operator()(int i) const { return p[i] != 0; }
-};
-
-struct CountOcc {
-  const int* p;
-  __device__ __forceinline__ bool operator()(int i) const { return p[i] > 0; }
-};
-
-// Hook of the union graph of fused_seg.py: one thread per voxel unites an
-// occupied voxel with each occupied forward neighbour (lexicographically
-// positive offset, so each undirected edge is seen once) at
-//   * Chebyshev 1, unconditionally, and
-//   * Chebyshev 2..radius, when
-//       (qual[n] && r_v <= far_bin) || (qual[v] && r_n <= far_bin)
-//     and |mean[v] - mean[n]| <= intensity_diff, qual = var <= intensity_cov.
-// Nothing wraps on any axis. Empty voxels (> 99 % of a real scan's grid)
-// exit at once; the launch covers all G voxels, so no compaction pass (and
-// no host sync) is needed to find the occupied ones.
-template <class Occ>
-__global__ void union_graph_hook_kernel(Occ occ, const float* __restrict__ mean,
-                                        const float* __restrict__ var,
-                                        int* label, int A, int R, int S,
-                                        int radius, float intensity_cov,
-                                        float intensity_diff, int far_bin) {
-  int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= A * R * S || !occ(g)) return;
-  int s = g % S;
-  int t = g / S;
-  int r = t % R;
-  int a = t / R;
-  bool qual_v = var[g] <= intensity_cov;
-  bool near_v = r <= far_bin;
-  float mean_v = mean[g];
-
-  for (int da = 0; da <= radius; ++da) {
-    int na = a + da;
-    if (na >= A) break;
-    for (int dr = -radius; dr <= radius; ++dr) {
-      int nr = r + dr;
-      if (nr < 0 || nr >= R) continue;
-      for (int ds = -radius; ds <= radius; ++ds) {
-        // forward half only: (da, dr, ds) lexicographically > 0
-        if (da == 0 && (dr < 0 || (dr == 0 && ds <= 0))) continue;
-        int ns = s + ds;
-        if (ns < 0 || ns >= S) continue;
-        int n = (na * R + nr) * S + ns;
-        if (!occ(n)) continue;
-        int cheb = max(da, max(abs(dr), abs(ds)));
-        if (cheb >= 2) {
-          bool gate = (var[n] <= intensity_cov && near_v) ||
-                      (qual_v && nr <= far_bin);
-          if (!gate || !(fabsf(mean_v - mean[n]) <= intensity_diff)) continue;
-        }
-        unite(label, g, n);
-      }
-    }
-  }
 }
 
 }  // namespace

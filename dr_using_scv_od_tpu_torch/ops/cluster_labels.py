@@ -8,8 +8,9 @@ own id. It dispatches on the device of its input, with no fallback:
 
   * a CPU tensor goes to `cluster_labels_reference`, the plain PyTorch
     version: min-label propagation over the explicit edge list;
-  * a CUDA tensor goes to the hand-written union-find kernel in
-    csrc/cluster_labels.cu (see its header for the design), or the call
+  * a CUDA tensor goes to the hand-written tiled union-find kernel in
+    csrc/cluster_labels.cu (see its header and csrc/tiled_union_find.cuh
+    for the design), with the tile plan of ops/tile_plan.py, or the call
     raises.
 
 The kernel is built with nvcc for sm_90a at first use (ops/cuda_build.py).
@@ -22,10 +23,11 @@ import ctypes
 
 import torch
 
-from . import clustering, cuda_build
+from . import clustering, cuda_build, tile_plan
 
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
-             + (ctypes.c_float, ctypes.c_float, ctypes.c_int))
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
+             + (ctypes.c_float, ctypes.c_float, ctypes.c_int)
+             + (ctypes.c_int,) * 6)
 
 
 def shell_radius(search_c: int, enable_shell: bool) -> int:
@@ -104,13 +106,17 @@ def cluster_labels(occupied3: torch.Tensor, intensity_mean: torch.Tensor,
         raise ValueError(f"no cluster_labels kernel for {occupied3.device}")
     _check_inputs(occupied3, intensity_mean, intensity_var)
     A, R, S = occupied3.shape
+    radius = shell_radius(search_c, enable_shell)
+    plan = tile_plan.plan((A, R, S), radius)
     out = torch.empty(A * R * S, dtype=torch.int32, device=occupied3.device)
+    flag = torch.empty(plan.n_tiles, dtype=torch.int32,
+                       device=occupied3.device)
     cuda_build.launch(
         "cluster_labels", _ARGTYPES, occupied3.device,
         occupied3.data_ptr(), intensity_mean.data_ptr(),
-        intensity_var.data_ptr(), out.data_ptr(), A, R, S,
-        shell_radius(search_c, enable_shell), intensity_cov,
-        intensity_diff, int(R * far_range_frac))
+        intensity_var.data_ptr(), out.data_ptr(), flag.data_ptr(), A, R, S,
+        radius, intensity_cov, intensity_diff, int(R * far_range_frac),
+        *plan.kernel_args)
     cluster_labels.launches += 1
     return out
 

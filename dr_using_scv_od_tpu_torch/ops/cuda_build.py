@@ -39,6 +39,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def nvcc_path() -> str:
+    """The CUDA compiler: `nvcc` on the PATH, else under CUDA_HOME."""
+    return shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
 def build_libraries(*names: str) -> Dict[str, Path]:
     """Compile the named `csrc/*.cu` files that are not built yet, one nvcc
     process each, all started together; return each library's path."""
@@ -46,8 +52,7 @@ def build_libraries(*names: str) -> Dict[str, Path]:
     todo = {name: lib for name, lib in libs.items() if not lib.exists()}
     if not todo:
         return libs
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, lib in todo.items():
@@ -99,8 +104,12 @@ def launch(name: str, argtypes: tuple, device: torch.device, *args) -> None:
     """Call the C entry `<name>_launch(*args, stream)` of `csrc/<name>.cu`
     on `device` and its current stream, and raise if it returns a CUDA
     error. `argtypes` are the ctypes of `args` (c_void_p for a pointer)."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _entry(name, argtypes)(*args, stream)
+    fn = _entry(name, argtypes)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:                       # the C entry launches on the current device
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -21,8 +21,9 @@ search_c = 2 only.
 
 `ri3_labels` dispatches on the device of its input, with no fallback: a
 CPU tensor goes to `ri3_labels_reference`, a CUDA tensor to the
-hand-written union-find kernel in csrc/ri3_labels.cu (built with nvcc for
-sm_90a at first use, ops/cuda_build.py), or the call raises.
+hand-written tiled union-find kernel in csrc/ri3_labels.cu (with the tile
+plan of ops/tile_plan.py; built with nvcc for sm_90a at first use,
+ops/cuda_build.py), or the call raises.
 `ri3_labels.launches` counts the kernel's launches.
 """
 
@@ -33,10 +34,11 @@ from typing import Tuple
 
 import torch
 
-from . import cluster_labels, clustering, cuda_build
+from . import cluster_labels, clustering, cuda_build, tile_plan
 
-_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4
-             + (ctypes.c_float, ctypes.c_float, ctypes.c_int))
+_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4
+             + (ctypes.c_float, ctypes.c_float, ctypes.c_int)
+             + (ctypes.c_int,) * 6)
 
 
 def ri3_labels_reference(root_grid: torch.Tensor, count: torch.Tensor,
@@ -79,14 +81,18 @@ def ri3_labels(root_grid: torch.Tensor, count: torch.Tensor,
                            ("intensity_mean", intensity_mean, torch.float32),
                            ("intensity_var", intensity_var, torch.float32)):
         cuda_build.check_input(name, t, dtype, G, root_grid.device)
+    radius = cluster_labels.shell_radius(search_c, True)
+    plan = tile_plan.plan((A, R, S), radius, min_label=True)
     out = torch.empty(G, dtype=torch.int32, device=root_grid.device)
     slot = torch.empty(G, dtype=torch.int32, device=root_grid.device)
+    flag = torch.empty(plan.n_tiles, dtype=torch.int32,
+                       device=root_grid.device)
     cuda_build.launch(
         "ri3_labels", _ARGTYPES, root_grid.device,
         root_grid.data_ptr(), count.data_ptr(), intensity_mean.data_ptr(),
-        intensity_var.data_ptr(), out.data_ptr(), slot.data_ptr(), A, R, S,
-        cluster_labels.shell_radius(search_c, True), intensity_cov,
-        intensity_diff, int(R * far_range_frac))
+        intensity_var.data_ptr(), out.data_ptr(), slot.data_ptr(),
+        flag.data_ptr(), A, R, S, radius, intensity_cov, intensity_diff,
+        int(R * far_range_frac), *plan.kernel_args)
     ri3_labels.launches += 1
     return out
 

@@ -5,7 +5,9 @@ nor the JAX package, so it also runs on a machine that has only torch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: none for labels. The three kernels compute exact fixpoints and
-must equal their plain versions' int32 labels in every launch. Poses of
+must equal their plain versions' int32 labels in every launch, on random
+grids and, for the tiled kernels 1 and 3, on the seam grids of their tile
+plan (ops/tile_plan.seam_grids) at a grid whose every side is clipped. Poses of
 `register` on the card against the port's CPU run: 5e-4 absolute on every
 entry of T (the [30, N] sums reduce in another order on the card; the port
 and the JAX package differ by < 1e-6 on these clouds,
@@ -33,11 +35,14 @@ from dr_using_scv_od_tpu_torch.ops import cc_labels as cc
 from dr_using_scv_od_tpu_torch.ops import cluster_labels as cl
 from dr_using_scv_od_tpu_torch.ops import clustering
 from dr_using_scv_od_tpu_torch.ops import ri3_labels as ri3
+from dr_using_scv_od_tpu_torch.ops import tile_plan
 from dr_using_scv_od_tpu_torch.utils import synthetic
 
 pytestmark = pytest.mark.cuda
 
 SHAPE = (6, 16, 64)
+SEAM_SHAPE = (13, 21, 75)    # no side a multiple of the 4 x 8 x 32 tile
+SEAM_CASES = ["snake-S", "snake-R", "snake-A", "faces", "dense60", "corners"]
 
 
 @pytest.fixture
@@ -68,6 +73,33 @@ def test_kernel_matches_reference(cuda_device, seed, shell):
         assert got.dtype == torch.int32 and got.device == cuda_device
         assert torch.equal(got, want)
     assert cl.cluster_labels.launches == before + 20
+
+
+@pytest.mark.parametrize("search_c", [2, 3])
+@pytest.mark.parametrize("case", SEAM_CASES)
+def test_tiled_kernels_match_reference_on_seam_grids(cuda_device, case,
+                                                     search_c):
+    """Kernels 1 and 3 in each of 20 launches on the seam grids of their
+    tile plan; at search_c 3 the seam pass asks for more than 48 KB of
+    shared memory."""
+    cases = tile_plan.seam_grids(SEAM_SHAPE, search_c, 1.0, 2.0)
+    name, occ, av, var = cases[SEAM_CASES.index(case)]
+    assert name == case
+    occ3, av, var = (torch.from_numpy(a).to(cuda_device)
+                     for a in (occ, av, var))
+    args = (occ3, av, var, search_c, 1.0, 2.0, 0.6)
+    want = cl.cluster_labels_reference(*args)
+    root = clustering.connected_components(occ3)
+    rargs = (root, occ3.reshape(-1).int(), av, var, SEAM_SHAPE, search_c,
+             1.0, 2.0, 0.6)
+    want3 = ri3.ri3_labels_reference(*rargs)
+    before = (cl.cluster_labels.launches, ri3.ri3_labels.launches)
+    for _ in range(20):
+        assert torch.equal(cl.cluster_labels(*args), want)
+        assert torch.equal(ri3.ri3_labels(*rargs), want3)
+    assert (cl.cluster_labels.launches, ri3.ri3_labels.launches) == (
+        before[0] + 20, before[1] + 20)
+    assert torch.equal(want3, want)
 
 
 def test_kernel_rejects_bad_inputs(cuda_device):
