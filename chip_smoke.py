@@ -35,7 +35,8 @@ Phases (each raises on failure, so the script exits non-zero):
      RR > 70, the card's poses against the port's CPU poses, and the
      time per registered pair;
   9. time cc_labels and ri3_labels beside their plain versions on the
-     frame-0 grid, and their device times against their bounds;
+     frame-0 grid, and their device times (CUDA graph) against their
+     bounds;
  10. the streaming SLAM engine at full width with bench.py's [slam]
      EngineConfig: 36 frames of the loop scene (7 windows of 6) fed one
      scan at a time through SlamEngine.feed, then finalize(final_erasor=
@@ -55,15 +56,33 @@ Phases (each raises on failure, so the script exits non-zero):
      along each axis, gated cheb-2 pairs across every tile face, a
      60 %-dense random grid, a voxel at every tile corner), on the
      60 x 72 x 300 grid and on 61 x 75 x 301, whose sides are no multiple
-     of the tile.
+     of the tile; and cc_labels against connected_components on the seam
+     grids of its radius-1 plan, on both shapes;
+ 12. drive the command-line entry points (dr_using_scv_od_tpu_torch.cli,
+     in process, default device: the card) at full semantickitti() width:
+     `segdf --frames 5 --iou --out` (judged-frame PR / RR / F1 equal to
+     phase 3's to the digits printed, the per-frame static / dynamic PCDs
+     read back and counted against phase 3's mask, cluster_labels launched
+     once per frame); `odometry --frames 4` (ATE under 0.15 m);
+     `bench-table` over configs/*.yaml (3 frames, one threshold);
+     `slam --data` over a KITTI-layout directory written from 12 frames of
+     the loop scene (prefetcher, decoder, --ckpt-every 6), then `--resume`
+     from the first checkpoint (trajectory within 1e-5 of the
+     uninterrupted run, cluster_labels launched on every frame); and the
+     host's time per scan on that path (decode, down-sample, pad, upload).
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -73,7 +92,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from dr_using_scv_od_tpu_torch import config, interop
+from dr_using_scv_od_tpu_torch import cli, config, interop
 from dr_using_scv_od_tpu_torch.eval import metrics
 from dr_using_scv_od_tpu_torch.models import (engine, odometry, pipeline,
                                               posegraph, scan_context)
@@ -83,7 +102,7 @@ from dr_using_scv_od_tpu_torch.ops import clustering, cuda_build
 from dr_using_scv_od_tpu_torch.ops import ri3_labels as ri3
 from dr_using_scv_od_tpu_torch.ops import tile_plan
 from dr_using_scv_od_tpu_torch.tools import kernel_times, profile_stages
-from dr_using_scv_od_tpu_torch.utils import synthetic
+from dr_using_scv_od_tpu_torch.utils import io_kitti, prefetch, synthetic
 
 F_CHECK = 5        # window judged against the accuracy floors
 F_TIME = 6         # window timed (bench.py's shape)
@@ -105,6 +124,8 @@ SLAM_CPU_WINDOWS = 2
 SLAM_T_ATOL = 1e-3
 LOOP_FRAMES = 24
 SEAM_SHAPES = ((60, 72, 300), (61, 75, 301))
+CLI_SLAM_FRAMES = 12
+CLI_CKPT_EVERY = 6
 
 
 def _log(msg: str) -> None:
@@ -477,6 +498,176 @@ def slam_phase(dev, cfg):
     return launches
 
 
+def _cli(argv) -> list:
+    """Run one subcommand of the port's command line in process (default
+    device), log what it printed, and return the lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        _log(f"  cli {argv[0]}| {line}")
+    _check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return lines
+
+
+def cli_phase(dev, cfg, res, metrics_judged, scene):
+    """Phase 12. `res` and `metrics_judged` are phase 3's run_window result
+    and judged-frame metrics on the window `segdf --frames 5` loads.
+    Returns {entry point: cluster_labels launches}."""
+    N = cfg.shapes.max_points
+    root = Path(tempfile.mkdtemp(prefix="cli_smoke_"))
+    launches = {}
+
+    def counted(name, argv):
+        for k in KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        lines = _cli(argv)
+        torch.cuda.synchronize()
+        launches[name] = cl.cluster_labels.launches
+        return lines, (time.perf_counter() - t0) * 1e3
+
+    # ---- segdf: the numbers of phase 3, the artifacts, one launch a frame
+    out = root / "segdf"
+    lines, _ = counted("segdf", ["segdf", "--frames", F_CHECK, "--iou",
+                                 "--out", out])
+    m = metrics_judged
+    want = f"(judged frames: PR={m.pr:.2f} RR={m.rr:.2f} F1={m.f1:.4f})"
+    _check(lines[0].endswith(want),
+           f"segdf printed {lines[0]!r}, phase 3 measured {want}")
+    _check(sum(line.startswith("  IoU ") for line in lines) == 5,
+           "segdf --iou did not print five IoU lines")
+    _check(launches["segdf"] == F_CHECK, f"segdf launched cluster_labels "
+           f"{launches['segdf']} times over {F_CHECK} frames")
+    win = synthetic.render_window(scene, F_CHECK, N)
+    removed = res.removed.cpu().numpy()
+    for f in range(F_CHECK):
+        n_static = len(io_kitti.read_pcd_xyzi(out / f"{f:06d}_static.pcd"))
+        n_dynamic = len(io_kitti.read_pcd_xyzi(out / f"{f:06d}_dynamic.pcd"))
+        _check(n_static == int((win["valid"][f] & ~removed[f]).sum())
+               and n_dynamic == int((win["valid"][f] & removed[f]).sum()),
+               f"segdf frame {f}: PCD point counts differ from the mask")
+        _check((out / f"{f:06d}_seg.pcd").stat().st_size > 0, "no seg PCD")
+    stage_ms = [float(v) for v in
+                (out / "time.txt").read_text().split()]
+    _log(f"cli segdf: pipeline stage {stage_ms[-1]:.3f} ms for {F_CHECK} "
+         f"frames = {stage_ms[-1] / F_CHECK:.3f} ms/frame (time.txt, mask "
+         f"fetched to the host), PCD point counts equal the mask on "
+         f"{F_CHECK} frames")
+
+    # ---- odometry
+    lines, _ = counted("odometry", ["odometry", "--frames", F_ODOM,
+                                    "--out", root / "poses.txt"])
+    ate = float(re.search(r"ATE_rmse=([0-9.]+)", lines[0]).group(1))
+    _check(ate < 0.15, f"cli odometry ATE {ate} >= 0.15 m")
+    _check(np.loadtxt(root / "poses.txt").shape == (F_ODOM, 12),
+           "cli odometry wrote no poses")
+
+    # ---- bench-table over the repo's YAML profiles
+    profiles = sorted((Path(__file__).resolve().parent / "configs")
+                      .glob("*.yaml"))
+    lines, ms = counted("bench-table", [
+        "bench-table", "--frames", 3, "--thresholds", "0.5",
+        "--profiles", profiles[0].parent])
+    rows = [line for line in lines[2:] if line.startswith("|")]
+    _check(len(profiles) > 0 and len(rows) == 4 * len(profiles),
+           f"bench-table printed {len(rows)} rows for {len(profiles)} "
+           f"profiles")
+    _check(all(float(r.split("|")[4]) > 90.0 for r in rows),
+           "a bench-table row has PR <= 90")
+    _log(f"cli bench-table: {len(rows)} rows in {ms:.1f} ms")
+
+    # ---- slam --data over a KITTI-layout directory, checkpoints, resume.
+    # cfg.skip = 5: the files 0, 5, 10, ... of the listing are streamed, so
+    # those hold the frames and the others are empty placeholders.
+    data = root / "velodyne"
+    data.mkdir()
+    swin = slam_window(CLI_SLAM_FRAMES, N)
+    n_files = (CLI_SLAM_FRAMES - 1) * cfg.skip + 1
+    for i in range(n_files):
+        pts = np.zeros((0, 4), np.float32)
+        if i % cfg.skip == 0:
+            f = i // cfg.skip
+            v = swin["valid"][f]
+            pts = np.concatenate(
+                [swin["xyz"][f][v],
+                 (swin["intensity"][f][v] / cfg.max_intensity)[:, None]],
+                axis=1).astype(np.float32)
+        pts.tofile(data / f"{i:06d}.bin")
+    slam = ["slam", "--data", data, "--end", 0, "--kf-dist", 4.0,
+            "--loop-min-score", 0.84, "--erasor-max-range", 45.0,
+            "--erasor-max-pts", 256]
+    out_a, out_b = root / "slam_a", root / "slam_b"
+    lines, ms = counted("slam", slam + ["--ckpt-every", CLI_CKPT_EVERY,
+                                        "--out", out_a])
+    head = next(line for line in lines if line.startswith("frames="))
+    _check(head.startswith(f"frames={CLI_SLAM_FRAMES} "),
+           f"cli slam processed {head!r}, expected {CLI_SLAM_FRAMES} frames")
+    _check("odo_fallbacks=0" in head, "cli slam: an odometry fallback")
+    _check(launches["slam"] >= CLI_SLAM_FRAMES, "cli slam did not go "
+           "through cluster_labels on every frame")
+    _log(f"cli slam --data: {ms:.1f} ms for {CLI_SLAM_FRAMES} frames = "
+         f"{ms / CLI_SLAM_FRAMES:.3f} ms/frame (host clock, decode and "
+         f"finalize included), {launches['slam']} cluster_labels launches")
+    ckpts = sorted(out_a.glob("engine_*.npz"))
+    _check(len(ckpts) >= 1 and (out_a / "map_static.pcd").stat().st_size > 0,
+           "cli slam wrote no checkpoint or no map")
+    first = str(ckpts[0])[:-len(".npz")]
+    lines, _ = counted("slam --resume", slam + ["--resume", first,
+                                                "--out", out_b])
+    _check(lines[0] == f"resumed at frame {CLI_CKPT_EVERY} from {first}",
+           f"cli slam --resume printed {lines[0]!r}")
+    _check(launches["slam --resume"] >= CLI_SLAM_FRAMES - CLI_CKPT_EVERY,
+           "the resumed run did not go through cluster_labels on every "
+           "frame")
+    traj_a = np.loadtxt(out_a / "trajectory.txt")
+    traj_b = np.loadtxt(out_b / "trajectory.txt")
+    _check(traj_a.shape == traj_b.shape, "resumed trajectory shape")
+    dtraj = float(np.abs(traj_a - traj_b).max())
+    _log(f"cli slam --resume: trajectory differs from the uninterrupted "
+         f"run by {dtraj:.3e}")
+    _check(dtraj <= 1e-5, "the resumed trajectory differs by > 1e-5")
+    # the written trajectory against the loop scene's ground truth
+    gt = torch.from_numpy(swin["poses"][:len(traj_a)])
+    est = torch.eye(4).repeat(len(traj_a), 1, 1)
+    est[:, :3, :] = torch.from_numpy(traj_a.reshape(-1, 3, 4)).float()
+    if len(traj_a) == CLI_SLAM_FRAMES:
+        ate = float(odometry.ate_rmse(est, gt))
+        _log(f"cli slam --data: ATE {ate:.5f} m over {len(traj_a)} "
+             f"keyframes")
+        _check(ate < 0.5, "cli slam ATE >= 0.5 m")
+
+    # ---- the host's share of the --data path, the device idle: the whole
+    # of what `slam --data` does to a scan before the engine sees it
+    # (decode, down-sample, pad, upload), then the decode and the
+    # down-sample alone
+    args = argparse.Namespace(data=str(data), labels=None, start=0, end=0)
+    eng = engine.SlamEngine(cfg, slam_config(), device=dev)
+    scans, n = cli.stream_scans(args, cfg)
+    t0 = time.perf_counter()
+    for scan in scans:
+        eng._scan(*scan)
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3 / n
+    bins = io_kitti.sorted_frame_files(data, ".bin")[::cfg.skip]
+    t0 = time.perf_counter()
+    raw = list(prefetch.ScanPrefetcher(bins, None, max_points=4 * N,
+                                       max_intensity=cfg.max_intensity))
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n
+    t0 = time.perf_counter()
+    kept = sum(int(io_kitti._voxel_downsample_np(xyz, 0.08).sum())
+               for xyz, _, _ in raw)
+    down_ms = (time.perf_counter() - t0) * 1e3 / n
+    _log(f"cli slam --data: host decode + down-sample + pad + upload "
+         f"{scan_ms:.3f} ms per scan over {n} scans; decode alone "
+         f"{decode_ms:.3f} ms, 0.08 m down-sample alone {down_ms:.3f} ms "
+         f"({kept // n} of {sum(len(r[0]) for r in raw) // n} points kept; "
+         f"native prefetcher: {io_kitti._native() is not None})")
+    shutil.rmtree(root)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -524,9 +715,9 @@ def main() -> int:
                 & torch.isfinite(res.tables.bbox_max[live]).all()),
            "non-finite bbox on a live cluster")
     _check(int(res.new_row_overflow) == 0, "cluster rows overflowed")
-    m = metrics.removal_metrics(win["label"][:F_CHECK - 1],
-                                res.removed[:F_CHECK - 1].cpu().numpy(),
-                                win["valid"][:F_CHECK - 1])
+    m = m_judged = metrics.removal_metrics(
+        win["label"][:F_CHECK - 1], res.removed[:F_CHECK - 1].cpu().numpy(),
+        win["valid"][:F_CHECK - 1])
     _log(f"metrics: PR {m.pr:.4f} RR {m.rr:.4f} F1 {m.f1:.5f} "
          f"(static {m.n_static}, dynamic {m.n_dynamic})")
     _check(m.pr > 99.0 and m.rr > 96.0 and m.f1 > 0.97,
@@ -718,8 +909,8 @@ def main() -> int:
     # ---- 10. the streaming SLAM engine at full width
     slam_launches = slam_phase(dev, cfg)
 
-    # ---- 11. kernels 1 and 3 on full-size seam grids of the tile plan
-    n_seam = 0
+    # ---- 11. the kernels on full-size seam grids of the tile plan
+    n_seam = n_seam_cc = 0
     for shape in SEAM_SHAPES:
         for name, occ, av, var in tile_plan.seam_grids(
                 shape, seg.search_c, seg.intensity_cov, seg.intensity_diff):
@@ -734,11 +925,22 @@ def main() -> int:
                  (clustering.connected_components(occ3),
                   occ3.reshape(-1).int(), av, var, shape) + ri3_args)
             n_seam += 1
+        for name, occ, _, _ in tile_plan.seam_grids(
+                shape, 1, seg.intensity_cov, seg.intensity_diff):
+            hold(f"seam {shape} {name}", cc.cc_labels,
+                 clustering.connected_components,
+                 (torch.as_tensor(occ, device=dev),))
+            n_seam_cc += 1
     _log(f"cluster_labels and ri3_labels == plain on {n_seam} full-size seam "
-         f"grids x {CHECK_REPS} launches")
+         f"grids, cc_labels on {n_seam_cc}, x {CHECK_REPS} launches")
 
-    # cluster_labels: launches of this slice's path, the engine; phase 3
-    # counted run_window's
+    # ---- 12. the command-line entry points at full width
+    cli_launches = cli_phase(dev, cfg, res, m_judged, scene)
+
+    # cluster_labels: launches of the engine's path (phase 10); phase 3
+    # counted run_window's and phase 12 the entry points'
+    _log(f"cluster_labels launches: run_window {launches}, engine "
+         f"{slam_launches}, entry points {cli_launches}")
     launch_counts = {"cluster_labels": slam_launches,
                      "cc_labels": prof_launches["cc_labels"],
                      "ri3_labels": prof_launches["ri3_labels"]}

@@ -1,7 +1,9 @@
 // Tiled union-find over a flat [A, R, S] voxel grid (g = (a * R + r) * S
 // + s), shared by cluster_labels.cu (kernel 1, replacing the TPU kernel
-// dr_using_scv_od_tpu/ops/pallas/fused_seg.py:56) and ri3_labels.cu
-// (kernel 3, replacing ops/pallas/ri3_kernel.py:52).
+// dr_using_scv_od_tpu/ops/pallas/fused_seg.py:56), ri3_labels.cu (kernel 3,
+// replacing ops/pallas/ri3_kernel.py:52) and, at radius 1 over the
+// occupancy alone, cc_labels.cu (kernel 2, replacing
+// ops/pallas/cc_kernel.py:49).
 //
 // The graph: every forward pair (v, n = v + d, d lexicographically
 // positive, Chebyshev distance 1..radius) of occupied voxels at Chebyshev
@@ -39,6 +41,8 @@
 //      are lexicographic in the tile, so monotone in flat id: each voxel's
 //      local root is its tile component's minimum flat id, which the block
 //      writes as the voxel's global parent (parent <= child still holds).
+//      Kernel 2 (kRuns) has no gated edge, so it unites RUNS instead, one
+//      thread per (occupied voxel, forward row): unite_runs_shared.
 //   2. seam pass, one block per tile (empty tiles return at once): load the
 //      tile and a halo of `radius` voxels beyond every side a forward offset
 //      can leave it by (+A, both R, both S): row masks (64 bits),
@@ -49,8 +53,9 @@
 //      memory. Only edges that cross a tile border reach global atomics
 //      (25 % of the frame-0 grid's 62k edges), and most of them repeat a few
 //      root pairs.
-//   3. compress, one block per tile: the read-only walk of union_find.cuh's
-//      compress_kernel. Kernel 3 adds a reduce here and a gather pass.
+//   3. compress, one block per tile: a read-only walk to each voxel's root
+//      (tile_compress_kernel). Kernel 3 adds a reduce here and a gather
+//      pass.
 //
 // What bounds the tiled kernel (tools/kernel_times.py on an H100, see
 // cluster_labels.cu): the densest tiles. The frame-0 grid's densest tile
@@ -242,6 +247,48 @@ __device__ __forceinline__ bool gate_passes(const TiledGrid& p, float mean_v,
   return gate && fabsf(mean_v - mean_n) <= p.diff;
 }
 
+// The three voxels of row mask `m` under s - 1, s, s + 1 as bits 0, 1, 2.
+__device__ __forceinline__ unsigned around(unsigned m, int s) {
+  return (s ? m >> (s - 1) : m << 1) & 7u;
+}
+
+// The Chebyshev-1 edges of a tile by RUNS of its row masks, for a tile pass
+// with no gated edge (radius 1). The 13 forward offsets of a voxel fall on
+// its own run (ds = +1: the run is one tree already) and on 3 voxels of each
+// of the 4 forward rows (da, dr) in {(0, 1), (1, -1), (1, 0), (1, 1)}. One
+// thread takes one (occupied voxel, forward row) pair of the tile's `n`
+// listed voxels. With x and y the masks of the voxel's row and of the
+// forward row: the voxel at s unites with y's voxel at s, unless its left
+// neighbour in x does so with y's at s - 1 (the same two runs); where y is
+// empty at s, with y's voxels at s - 1 and s + 1 (two runs), each unless the
+// neighbour in x on that side stands right over it and makes that union
+// itself. So all 1024 threads of a block work at once on a tile of ~270
+// voxels, where one warp per voxel at K = 13 keeps 13 lanes of 32 busy for
+// 9 rounds.
+__device__ __forceinline__ void unite_runs_shared(int* par, const int* list,
+                                                  const unsigned* rowmask,
+                                                  int n, const Tile& k) {
+  for (int item = threadIdx.x; item < 4 * n; item += blockDim.x) {
+    int va, vr, vs;
+    unpack3(list[item >> 2], va, vr, vs);
+    const int f = item & 3;
+    const int na = va + (f > 0);
+    const int nr = vr + (f == 0 ? 1 : f - 2);
+    if (na >= k.ea || nr < 0 || nr >= k.er) continue;
+    const unsigned y = around(rowmask[na * k.er + nr], vs);
+    if (!y) continue;
+    const unsigned x = around(rowmask[va * k.er + vr], vs);
+    const int v = (va * k.er + vr) * k.es + vs;
+    const int nb = (na * k.er + nr) * k.es + vs;
+    if (y & 2u) {
+      if ((x & y & 1u) == 0) unite_shared(par, v, nb);
+    } else {
+      if ((y & 1u) && !(x & 1u)) unite_shared(par, v, nb - 1);
+      if ((y & 4u) && !(x & 4u)) unite_shared(par, v, nb + 1);
+    }
+  }
+}
+
 // The list slot of each lane whose `take` is set, one shared atomic per
 // warp.
 __device__ __forceinline__ int warp_append(bool take, int* count) {
@@ -271,13 +318,15 @@ __host__ __device__ __forceinline__ int tile_count(const TiledGrid& p) {
 
 // Shared-memory layout of the tile pass (ops/tile_plan.py tile_smem):
 // V = TA * TR * TS words each of parent and occupied list, TA * TR row
-// masks, K words of offsets, V words each of [kernel 3: minimum input
-// label] and [radius > 1: mean, variance], then kTilesPerBlock x threads
-// occupancy bytes. Each tile's origin, extent and row starts are worked out
+// masks, K words of offsets (unused under kRuns), V words each of
+// [kernel 3: minimum input label] and [radius > 1: mean, variance], then
+// kTilesPerBlock x threads occupancy bytes. kRuns (kernel 2: radius 1, no
+// intensity plane, mean and var null) replaces the per-offset edge loop by
+// unite_runs_shared. Each tile's origin, extent and row starts are worked out
 // once per block (a table in static shared memory): the runtime divisions
 // of tile_at, done by every thread for every tile, made the empty tiles
 // cost more than all the rest.
-template <class Occ, bool kMinLabel>
+template <class Occ, bool kMinLabel, bool kRuns = false>
 __global__ void __launch_bounds__(kMaxThreads)
     tile_pass_kernel(Occ occ, const float* __restrict__ mean,
                      const float* __restrict__ var,
@@ -290,7 +339,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   __shared__ int row_g0[kTilesPerBlock][32];     // -1: no such row
   const int vmax = p.TA * p.TR * p.TS;
   const int h = p.radius;
-  const bool shell = h > 1;
+  const bool shell = !kRuns && h > 1;
   int* par = smem;
   int* list = par + vmax;
   unsigned* rowmask = reinterpret_cast<unsigned*>(list + vmax);
@@ -316,8 +365,9 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (lane == 0) tiles_of[i] = k;
     }
   }
-  for (int q = threadIdx.x; q < p.K; q += blockDim.x)
-    offs[q] = packed_offset(h, q);
+  if (!kRuns)
+    for (int q = threadIdx.x; q < p.K; q += blockDim.x)
+      offs[q] = packed_offset(h, q);
   __syncthreads();
   // This thread's voxel of each of the block's tiles: all loads in flight
   // at once.
@@ -376,7 +426,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     // One warp per occupied voxel, one lane per forward offset; the loops
     // are warp-uniform, so the lanes stay converged.
     const int n = n_occ;
-    for (int jv = warp; jv < n; jv += nwarps) {
+    if (kRuns) unite_runs_shared(par, list, rowmask, n, k);
+    for (int jv = warp; !kRuns && jv < n; jv += nwarps) {
       int va, vr, vs;
       unpack3(list[jv], va, vr, vs);
       const int v = (va * k.er + vr) * k.es + vs;
@@ -577,8 +628,10 @@ __device__ __forceinline__ int my_voxel(const TiledGrid& p, int t) {
   return warp < k.rows() && lane < k.es ? k.row_start(p, warp) + lane : -1;
 }
 
-// Compress over occupied tiles: each voxel's root, by a read-only walk
-// (union_find.cuh compress_kernel); empty voxels and roots return at once.
+// Compress over occupied tiles, after the last union, so roots are fixed.
+// Each thread walks up without halving and writes only its own voxel: a
+// halving store by another thread could otherwise overwrite a voxel's final
+// root with an older ancestor. Empty voxels and roots return at once.
 __global__ void __launch_bounds__(kMaxThreads)
     tile_compress_kernel(volatile int* label, const int* __restrict__ flag,
                          TiledGrid p) {

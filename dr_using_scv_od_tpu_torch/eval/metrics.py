@@ -1,12 +1,12 @@
 """Dynamic-removal metrics in numpy (counterpart of
-dr_using_scv_od_tpu/eval/metrics.py:35-77; reference
-tool/analysis.py:124-194). Point identity is kept end to end, so the
+dr_using_scv_od_tpu/eval/metrics.py; reference tool/analysis.py:124-194,
+src/plotObject.cpp:89-146). Point identity is kept end to end, so the
 correspondence with ground truth is exact.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 
@@ -52,3 +52,39 @@ def removal_metrics(gt_labels, removed, valid,
     return RemovalMetrics(pr=pr, rr=rr, f1=f1, n_static=n_sta,
                           n_dynamic=n_dyn, n_static_removed=sta_removed,
                           n_dynamic_removed=dyn_removed)
+
+
+def per_class_rejection(gt_labels: np.ndarray, removed: np.ndarray,
+                        valid: np.ndarray,
+                        dynamic_classes: Sequence[int] = DYNAMIC_CLASSES):
+    """Per-dynamic-class rejection table (tool/analysis.py:163-171).
+    Returns {class: (rejection %, n_remaining, n_all)}."""
+    sem = gt_labels.astype(np.uint32) & 0xFFFF
+    out = {}
+    for c in dynamic_classes:
+        m = (sem == c) & valid
+        n_all = int(m.sum())
+        if n_all == 0:
+            continue
+        n_remain = int((m & ~removed).sum())
+        out[c] = (100.0 * (n_all - n_remain) / n_all, n_remain, n_all)
+    return out
+
+
+def semantic_iou(gt_labels: np.ndarray, pred_class: np.ndarray,
+                 valid: np.ndarray,
+                 class_map: Dict[int, Tuple[int, ...]]) -> Dict[int, float]:
+    """Per-class IoU in the style of src/plotObject.cpp:89-146.
+
+    class_map: predicted class id -> tuple of ground-truth semantic labels
+    counted as that class.
+    """
+    sem = gt_labels.astype(np.uint32) & 0xFFFF
+    out = {}
+    for cls, gt_set in class_map.items():
+        pred = (pred_class == cls) & valid
+        gt = np.isin(sem, gt_set) & valid
+        inter = float((pred & gt).sum())
+        union = float((pred | gt).sum())
+        out[cls] = 100.0 * inter / max(union, 1.0)
+    return out

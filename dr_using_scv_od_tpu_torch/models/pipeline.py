@@ -96,12 +96,15 @@ class WindowResult(NamedTuple):
 
 def run_window(xyz: torch.Tensor, intensity: torch.Tensor,
                valid: torch.Tensor, poses: torch.Tensor,
-               cfg: PipelineConfig, init_track=None) -> WindowResult:
+               cfg: PipelineConfig, bbox_dropped_dynamic: bool = False,
+               init_track=None) -> WindowResult:
     """The batch pipeline over one window: per-frame segmentation, pairwise
     tracking, and the final per-point dynamic verdicts.
 
     Inputs: xyz [F,N,3] f32, intensity [F,N] f32, valid [F,N] bool,
-    poses [F,4,4] f32 world_T_sensor, all on one device. `init_track`:
+    poses [F,4,4] f32 world_T_sensor, all on one device.
+    `bbox_dropped_dynamic` also removes the points of clusters that the
+    bbox filter erased and routed dynamic (evaluation only). `init_track`:
     optional streaming carry (table, label_grid, counter) for the first
     frame (interop.track_carry_from_numpy builds one from a JAX run)."""
     frames = process_window(xyz, intensity, valid, poses, cfg)
@@ -117,6 +120,9 @@ def run_window(xyz: torch.Tensor, intensity: torch.Tensor,
     dyn_row = tr.tables.state == STATE_DYNAMIC            # [F, C]
     is_dyn = dyn_row.gather(1, torch.clamp(pc, 0, C - 1).long())
     removed = (pc >= 0) & is_dyn
+    if bbox_dropped_dynamic:
+        removed = removed | (frames.state.point_route
+                             == segmentation.ROUTE_BBOX_DYNAMIC)
     if cfg.track.dynamic_bbox_sweep:
         removed = removed | _dynamic_bbox_sweep(xyz, tr.tables, cfg)
     removed = removed & valid

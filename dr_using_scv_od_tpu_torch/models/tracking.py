@@ -50,10 +50,11 @@ def _pair_step(prev_table: ClusterTable, prev_grid: torch.Tensor,
                next_table: ClusterTable, next_grid: torch.Tensor,
                prev_xyz: torch.Tensor, prev_point_voxel: torch.Tensor,
                prev_valid: torch.Tensor, T_np: torch.Tensor,
-               counter: torch.Tensor, cfg: PipelineConfig):
+               counter: torch.Tensor, cfg: PipelineConfig,
+               occupancy: float | None = None):
     """One tracking pair. Returns (prev_table_final, next_table_mut,
     next_grid_mut, counter, n_dynamic, row_overflow, track_overflow,
-    prev point clusters)."""
+    prev point clusters). `occupancy` overrides cfg.track.occupancy."""
     C = cfg.shapes.max_clusters
     G = cfg.grid.bin_num
     device = prev_xyz.device
@@ -129,7 +130,7 @@ def _pair_step(prev_table: ClusterTable, prev_grid: torch.Tensor,
     lstar_type = next_table.type[lstar]
     lstar_is_car = lstar_type == TYPE_CAR
 
-    occ = cfg.track.occupancy
+    occ = cfg.track.occupancy if occupancy is None else occupancy
     active = is_car_row & has_budgeted_pt & sufficient
 
     # verdict lattice (ssc.cpp:1323-1421)
@@ -223,7 +224,8 @@ def _pair_step(prev_table: ClusterTable, prev_grid: torch.Tensor,
 def track_window(xyz: torch.Tensor, point_voxel: torch.Tensor,
                  point_valid: torch.Tensor, label_grids: torch.Tensor,
                  tables: ClusterTable, poses: torch.Tensor,
-                 cfg: PipelineConfig, init_carry=None) -> TrackingResult:
+                 cfg: PipelineConfig, init_carry=None,
+                 occupancy: float | None = None) -> TrackingResult:
     """Tracking over a window of F frames, pair by pair
     (src/ssc.cpp:1450-1452). Inputs are stacked on the frame axis: xyz
     [F,N,3], point_voxel [F,N], point_valid [F,N], label_grids [F,G],
@@ -231,7 +233,9 @@ def track_window(xyz: torch.Tensor, point_voxel: torch.Tensor,
 
     `init_carry` (streaming): optional (table, label_grid, counter) of the
     window's first frame as the previous overlapping window left it;
-    defaults to the first frame's own state with counter 0."""
+    defaults to the first frame's own state with counter 0. `occupancy`
+    overrides cfg.track.occupancy, the scalar threshold of the verdict
+    lattice (eval/sweep.py sweeps it over one segmentation)."""
     F = xyz.shape[0]
     device = xyz.device
     zero = torch.zeros((), dtype=torch.int32, device=device)
@@ -245,7 +249,8 @@ def track_window(xyz: torch.Tensor, point_voxel: torch.Tensor,
         T_np = geometry.inverse_se3(poses[t + 1]) @ poses[t]
         (prev_fin, nxt_table, nxt_grid, counter, nd, o, to, pc) = _pair_step(
             cur_table, cur_grid, take(tables, t + 1), label_grids[t + 1],
-            xyz[t], point_voxel[t], point_valid[t], T_np, counter, cfg)
+            xyz[t], point_voxel[t], point_valid[t], T_np, counter, cfg,
+            occupancy)
         fin_tables.append(prev_fin)
         fin_grids.append(cur_grid)
         n_dyn.append(nd)

@@ -9,8 +9,10 @@ device of its input, with no fallback:
   * a CPU tensor goes to the plain PyTorch version,
     `ops/clustering.connected_components` (min-label propagation over the
     explicit edge list);
-  * a CUDA tensor goes to the hand-written union-find kernel in
-    csrc/cc_labels.cu (see its header for the design), or the call raises.
+  * a CUDA tensor goes to the hand-written tiled union-find kernel in
+    csrc/cc_labels.cu (see its header and csrc/tiled_union_find.cuh for
+    the design), with the radius-1 tile plan of ops/tile_plan.py, or the
+    call raises.
 
 The kernel is built with nvcc for sm_90a at first use (ops/cuda_build.py).
 `cc_labels.launches` counts the kernel's launches.
@@ -22,9 +24,9 @@ import ctypes
 
 import torch
 
-from . import clustering, cuda_build
+from . import clustering, cuda_build, tile_plan
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p) + (ctypes.c_int,) * 3
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 9
 
 
 def cc_labels(occupied3: torch.Tensor) -> torch.Tensor:
@@ -41,9 +43,13 @@ def cc_labels(occupied3: torch.Tensor) -> torch.Tensor:
     cuda_build.check_input("occupied3", occupied3, torch.bool,
                            occupied3.numel(), occupied3.device)
     A, R, S = occupied3.shape
+    plan = tile_plan.plan((A, R, S), 1)
     out = torch.empty(A * R * S, dtype=torch.int32, device=occupied3.device)
+    flag = torch.empty(plan.n_tiles, dtype=torch.int32,
+                       device=occupied3.device)
     cuda_build.launch("cc_labels", _ARGTYPES, occupied3.device,
-                      occupied3.data_ptr(), out.data_ptr(), A, R, S)
+                      occupied3.data_ptr(), out.data_ptr(), flag.data_ptr(),
+                      A, R, S, *plan.kernel_args)
     cc_labels.launches += 1
     return out
 

@@ -1,7 +1,8 @@
 """Vectorized geometric primitives (counterpart of
 dr_using_scv_od_tpu/ops/geometry.py:19-170): 2-D range, polar and azimuth
-angles, rigid transforms, and the se(3) maps of GICP. Operation order follows the JAX functions so the
-two agree bit for bit where the arithmetic allows.
+angles, rigid transforms, Euler poses, and the se(3) maps of GICP.
+Operation order follows the JAX functions so the two agree bit for bit
+where the arithmetic allows.
 """
 
 from __future__ import annotations
@@ -55,6 +56,29 @@ def inverse_se3(T: torch.Tensor) -> torch.Tensor:
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=T.dtype,
                           device=T.device).expand(T.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+def euler_to_matrix(roll: torch.Tensor, pitch: torch.Tensor,
+                    yaw: torch.Tensor) -> torch.Tensor:
+    """R = Rz(yaw) @ Ry(pitch) @ Rx(roll), the convention of
+    pcl::getTransformation used throughout the reference
+    (e.g. src/ssc.cpp:1163, 1255-1256)."""
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    return torch.stack([
+        torch.stack([cy * cp, cy * sp * sr - sy * cr,
+                     cy * sp * cr + sy * sr], -1),
+        torch.stack([sy * cp, sy * sp * sr + cy * cr,
+                     sy * sp * cr - cy * sr], -1),
+        torch.stack([-sp, cp * sr, cp * cr], -1),
+    ], dim=-2)
+
+
+def pose_to_matrix(xyzrpy: torch.Tensor) -> torch.Tensor:
+    """[..., 6] (x,y,z,roll,pitch,yaw) -> [...,4,4] homogeneous transform."""
+    R = euler_to_matrix(xyzrpy[..., 3], xyzrpy[..., 4], xyzrpy[..., 5])
+    return _se3(R, xyzrpy[..., :3, None])
 
 
 # se(3) exponential and hat maps for the GICP Gauss-Newton solver

@@ -1,6 +1,6 @@
-"""The tile plan of the tiled union-find that kernels 1 and 3 run
-(csrc/tiled_union_find.cuh, behind ops/cluster_labels.py and
-ops/ri3_labels.py).
+"""The tile plan of the tiled union-find that the three label kernels run
+(csrc/tiled_union_find.cuh, behind ops/cluster_labels.py, ops/cc_labels.py
+at radius 1 and ops/ri3_labels.py).
 
 The [A, R, S] grid is cut into tiles of TA x TR x TS voxels (S innermost;
 the last tile of an axis is clipped to the grid). One block runs per tile

@@ -23,16 +23,24 @@ cross a tile border. For each kernel it prints:
   * the bound: the bytes the function must move (`bound_bytes`) over the
     card's 3.35 TB/s, and the device time's share of it.
 
+Beside kernel 2 it times `cluster_labels(occ, enable_shell=False)`, the
+same function on kernel 1's tiled passes at radius 1 ("cluster_labels_r1"),
+which kernel 2 must not be slower than.
+
 --baseline DIR times, beside the package's kernels and on the same grid,
-the untiled union-find kernels kept in DIR (cluster_labels.cu, cc_labels.cu,
-ri3_labels.cu and their union_find.cuh: one thread per voxel, init / hook /
-compress), built with the package's nvcc flags into build/baseline/ and
-called through their C entries:
+an older version of them: whichever of cluster_labels.cu, cc_labels.cu and
+ri3_labels.cu DIR holds (with their headers), built with the package's nvcc
+flags into build/baseline/ and called through their C entries. An entry is
+either the package's present, tiled one (a `flag` scratch pointer after the
+outputs and the tile plan's TA, TR, TS, threads, tile_smem, seam_smem
+before the stream) or the untiled one of the first kernels (one thread per
+voxel: init / hook / compress):
   cluster_labels_launch(occ, mean, var, label, A, R, S, radius, cov, diff,
                         far_bin, stream)
   cc_labels_launch(occ, label, A, R, S, stream)
   ri3_labels_launch(root, count, mean, var, label, slot, A, R, S, radius,
                     cov, diff, far_bin, stream)
+Which one a source has is read from its text (`tile_smem` in it or not).
 The two versions are timed in turns (baseline, package, package,
 baseline) and each must give the plain version's labels. The baseline
 sources are not part of the package.
@@ -68,7 +76,7 @@ def bound_bytes(name: str, G: int, M: int) -> int:
     output written once."""
     if name == "cluster_labels":    # occupancy, mean + var, labels out
         return G * 1 + M * 8 + G * 4
-    if name == "cc_labels":         # occupancy, labels out
+    if name in ("cc_labels", "cluster_labels_r1"):   # occupancy, labels out
         return G * 1 + G * 4
     if name == "ri3_labels":        # counts, labels in, mean + var, out
         return G * 4 + M * 4 + M * 8 + G * 4
@@ -200,62 +208,69 @@ def tile_stats(occ3: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
 
 
 def _baseline_calls(directory: Path, cfg, occ3, count, mean, var, root):
-    """The baseline kernels of `directory` as {name: fn() -> labels}."""
+    """The label kernels whose sources `directory` holds, as {name: fn() ->
+    labels}: each `<name>.cu` built with the package's nvcc flags and called
+    through its C entry, tiled (the package's present entry) where the
+    source's entry takes `tile_smem`, else untiled."""
+    A, R, S = cfg.grid.shape
+    G = A * R * S
+    seg = cfg.seg
+    radius = cluster_labels.shell_radius(seg.search_c, True)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    gate = (radius, seg.intensity_cov, seg.intensity_diff,
+            int(R * seg.far_range_frac))
+    gate_types = (ci, cf, cf, ci)
+    # name: (inputs, outputs, scalars after A, R, S, their types, tile plan)
+    specs = {
+        "cluster_labels": ((occ3, mean, var), 1, gate, gate_types,
+                           tile_plan.plan((A, R, S), radius)),
+        "cc_labels": ((occ3,), 1, (), (), tile_plan.plan((A, R, S), 1)),
+        "ri3_labels": ((root, count, mean, var), 2, gate, gate_types,
+                       tile_plan.plan((A, R, S), radius, min_label=True)),
+    }
+    names = [n for n in specs if (directory / f"{n}.cu").exists()]
+    if not names:
+        raise SystemExit(f"kernel_times: no kernel source in {directory}")
     out_dir = cuda_build.BUILD_DIR / "baseline"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = cuda_build.nvcc_path()
     procs = {name: subprocess.Popen(
         [nvcc, *cuda_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"),
          str(directory / f"{name}.cu")], stderr=subprocess.PIPE, text=True)
-        for name in ("cluster_labels", "cc_labels", "ri3_labels")}
+        for name in names}
     for name, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {directory / name}.cu:\n{err}")
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sigs = {"cluster_labels": (vp,) * 4 + (ci,) * 4 + (cf, cf, ci),
-            "cc_labels": (vp, vp) + (ci,) * 3,
-            "ri3_labels": (vp,) * 6 + (ci,) * 4 + (cf, cf, ci)}
-    fns = {}
-    for name, argtypes in sigs.items():
+
+    def call(name):
+        inputs, n_out, scalars, scalar_types, plan = specs[name]
+        tiled = "tile_smem" in (directory / f"{name}.cu").read_text()
         fn = getattr(ctypes.CDLL(str(out_dir / f"lib{name}.so")),
                      f"{name}_launch")
-        fn.argtypes = [*argtypes, vp]
+        fn.argtypes = [*(vp,) * (len(inputs) + n_out + tiled), ci, ci, ci,
+                       *scalar_types, *(ci,) * (6 * tiled), vp]
         fn.restype = ci
-        fns[name] = fn
-    A, R, S = cfg.grid.shape
-    G = A * R * S
-    seg = cfg.seg
-    gate = (seg.intensity_cov, seg.intensity_diff,
-            int(R * seg.far_range_frac))
-    radius = cluster_labels.shell_radius(seg.search_c, True)
+        tail = plan.kernel_args if tiled else ()
+        print(f"baseline {name}: {'tiled' if tiled else 'untiled'} entry",
+              flush=True)
 
-    def run(name, *args):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fns[name](*args, stream)
-        if err != 0:
-            raise RuntimeError(f"baseline {name} failed: CUDA error {err}")
+        def run():
+            bufs = [torch.empty(G, dtype=torch.int32, device=occ3.device)
+                    for _ in range(n_out)]
+            if tiled:       # the flag scratch, one word a tile
+                bufs.append(torch.empty(plan.n_tiles, dtype=torch.int32,
+                                        device=occ3.device))
+            err = fn(*(t.data_ptr() for t in (*inputs, *bufs)), A, R, S,
+                     *scalars, *tail,
+                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"baseline {name} failed: CUDA error "
+                                   f"{err}")
+            return bufs[0]
+        return run
 
-    def fused():
-        out = torch.empty(G, dtype=torch.int32, device=occ3.device)
-        run("cluster_labels", occ3.data_ptr(), mean.data_ptr(),
-            var.data_ptr(), out.data_ptr(), A, R, S, radius, *gate)
-        return out
-
-    def cc():
-        out = torch.empty(G, dtype=torch.int32, device=occ3.device)
-        run("cc_labels", occ3.data_ptr(), out.data_ptr(), A, R, S)
-        return out
-
-    def ri3():
-        out = torch.empty(G, dtype=torch.int32, device=occ3.device)
-        slot = torch.empty(G, dtype=torch.int32, device=occ3.device)
-        run("ri3_labels", root.data_ptr(), count.data_ptr(), mean.data_ptr(),
-            var.data_ptr(), out.data_ptr(), slot.data_ptr(), A, R, S,
-            radius, *gate)
-        return out
-
-    return {"cluster_labels": fused, "cc_labels": cc, "ri3_labels": ri3}
+    return {name: call(name) for name in names}
 
 
 def measure(fn, reps: int) -> Dict[str, object]:
@@ -268,8 +283,8 @@ def measure(fn, reps: int) -> Dict[str, object]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="csrc directory of the untiled kernels to time "
-                         "beside the package's")
+                    help="csrc directory of an older version of the "
+                         "kernels to time beside the package's")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -294,6 +309,8 @@ def main(argv=None) -> int:
         "cluster_labels": lambda: cluster_labels.cluster_labels(
             occ3, mean, var, *gate),
         "cc_labels": lambda: cc_labels.cc_labels(occ3),
+        "cluster_labels_r1": lambda: cluster_labels.cluster_labels(
+            occ3, mean, var, *gate, enable_shell=False),
         "ri3_labels": lambda: ri3_labels.ri3_labels(
             root, count, mean, var, (A, R, S), *gate),
     }
@@ -301,19 +318,20 @@ def main(argv=None) -> int:
         "cluster_labels": lambda: cluster_labels.cluster_labels_reference(
             occ3, mean, var, *gate),
         "cc_labels": lambda: clustering.connected_components(occ3),
+        "cluster_labels_r1": lambda: clustering.connected_components(occ3),
         "ri3_labels": lambda: ri3_labels.ri3_labels_reference(
             root, count, mean, var, (A, R, S), *gate),
     }
     versions = {"package": current}
     order = ["package"]
     if args.baseline is not None:
-        versions["baseline"] = _baseline_calls(args.baseline, cfg, occ3,
-                                               count, mean, var, root)
+        versions["baseline"] = _baseline_calls(
+            args.baseline, cfg, occ3, count, mean, var, root)
         order = ["baseline", "package", "package", "baseline"]
     for name in current:
         want = plain[name]()
         for version in versions.values():
-            if not torch.equal(version[name](), want):
+            if name in version and not torch.equal(version[name](), want):
                 raise RuntimeError(f"{name}: labels differ from the plain "
                                    f"version")
     results = {}
@@ -323,7 +341,7 @@ def main(argv=None) -> int:
             r["bound_ms"] = bound_ms(name, G, M)
             r["share_of_bound"] = r["bound_ms"] / r["device_ms"]
             results.setdefault(version, {}).setdefault(name, []).append(r)
-            print(f"{version:<8} {name:<15} device {r['device_ms']:.4f} ms "
+            print(f"{version:<8} {name:<17} device {r['device_ms']:.4f} ms "
                   f"graph {r['graph_ms']:.4f} wall {r['wall_ms']:.4f} "
                   f"host {r['host_ms']:.4f} "
                   f"bound {r['bound_ms'] * 1e3:.3f} us share "

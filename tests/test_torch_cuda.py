@@ -6,8 +6,9 @@ nor the JAX package, so it also runs on a machine that has only torch:
 
 Tolerances: none for labels. The three kernels compute exact fixpoints and
 must equal their plain versions' int32 labels in every launch, on random
-grids and, for the tiled kernels 1 and 3, on the seam grids of their tile
-plan (ops/tile_plan.seam_grids) at a grid whose every side is clipped. Poses of
+grids and on the seam grids of their tile plan (ops/tile_plan.seam_grids)
+at a grid whose every side is clipped; kernel 2 also on a ragged full-size
+grid (61 x 75 x 301) and on adversarial occupancies. Poses of
 `register` on the card against the port's CPU run: 5e-4 absolute on every
 entry of T (the [30, N] sums reduce in another order on the card; the port
 and the JAX package differ by < 1e-6 on these clouds,
@@ -143,6 +144,66 @@ def test_cc_kernel_matches_reference(cuda_device, seed):
     assert cc.cc_labels.launches == before + 20
 
 
+def _hold_cc(occ, device, launches=10):
+    occ3 = torch.as_tensor(occ, device=device)
+    want = clustering.connected_components(occ3)
+    before = cc.cc_labels.launches
+    for _ in range(launches):
+        got = cc.cc_labels(occ3)
+        assert got.dtype == torch.int32 and got.device == device
+        assert torch.equal(got, want)
+    assert cc.cc_labels.launches == before + launches
+    return occ3, want
+
+
+@pytest.mark.parametrize("case", SEAM_CASES)
+def test_cc_kernel_matches_reference_on_seam_grids(cuda_device, case):
+    """Kernel 2 in each of 10 launches on the seam grids of its radius-1
+    tile plan, and the identity with kernel 1 without the shell."""
+    cases = tile_plan.seam_grids(SEAM_SHAPE, 1, 1.0, 2.0)
+    name, occ, av, var = cases[SEAM_CASES.index(case)]
+    assert name == case
+    occ3, want = _hold_cc(occ, cuda_device)
+    av, var = (torch.from_numpy(a).to(cuda_device) for a in (av, var))
+    assert torch.equal(want, cl.cluster_labels(occ3, av, var, 2, 1.0, 2.0,
+                                               0.6, enable_shell=False))
+
+
+@pytest.mark.parametrize("density", [0.007, 0.2, 0.6])
+def test_cc_kernel_on_a_ragged_full_size_grid(cuda_device, density):
+    """61 x 75 x 301: every axis ends in a clipped tile."""
+    rng = np.random.default_rng(int(density * 1000))
+    _hold_cc(rng.random((61, 75, 301)) < density, cuda_device)
+
+
+def _adversarial_occupancies():
+    shape = (9, 19, 70)
+    full = np.ones(shape, bool)
+    checker = np.indices(shape).sum(0) % 2 == 0
+    # alternate voxels along S on alternate rows: every union is a
+    # diagonal one between runs of length 1
+    combs = np.zeros(shape, bool)
+    combs[:, ::2, ::2] = True
+    combs[:, 1::2, 1::2] = True
+    stairs = np.zeros(shape, bool)
+    for i in range(70):
+        stairs[i % 9, i % 19, i] = True
+    gaps = np.zeros(shape, bool)        # runs facing the gaps of the next row
+    gaps[:, ::2, :] = np.arange(70) % 4 < 2
+    gaps[:, 1::2, :] = np.arange(70) % 4 == 3
+    column = np.zeros(shape, bool)
+    column[:, 7, 31:33] = True          # across the S tile border
+    return {"full": full, "empty": ~full, "checker": checker,
+            "combs": combs, "stairs": stairs, "gaps": gaps,
+            "column": column}
+
+
+@pytest.mark.parametrize("case", ["full", "empty", "checker", "combs",
+                                  "stairs", "gaps", "column"])
+def test_cc_kernel_on_adversarial_grids(cuda_device, case):
+    _hold_cc(_adversarial_occupancies()[case], cuda_device)
+
+
 @pytest.mark.parametrize("labels", ["cc-fixpoint", "permuted"])
 @pytest.mark.parametrize("seed", range(8))
 def test_ri3_kernel_matches_reference(cuda_device, seed, labels):
@@ -164,8 +225,10 @@ def test_ri3_kernel_matches_reference(cuda_device, seed, labels):
         assert torch.equal(got, want)
     assert ri3.ri3_labels.launches == before + 20
     if labels == "cc-fixpoint":
-        assert torch.equal(got, cl.cluster_labels(occ, av, var, 2, 1.0, 2.0,
-                                                  0.6))
+        fused = cl.cluster_labels(occ, av, var, 2, 1.0, 2.0, 0.6)
+        assert torch.equal(got, fused)
+        assert torch.equal(ri3.ri3_labels(cc.cc_labels(occ), *args[1:]),
+                           fused)
 
 
 def test_cc_ri3_kernels_reject_bad_inputs(cuda_device):

@@ -63,6 +63,17 @@ def test_no_jax_import_statement(path):
                 f"{path.name} imports {name}"
 
 
+def test_guard_covers_the_entry_points_and_io_modules():
+    """The two guards above walk every file of the port: the command line,
+    the dataset I/O and the evaluation tools are among them."""
+    guarded = {p.relative_to(PORT).as_posix() for p in _port_sources()
+               if PORT in p.parents}
+    assert {"cli.py", "config_yaml.py", "utils/io_kitti.py",
+            "utils/prefetch.py", "utils/io_sydney.py", "utils/logging.py",
+            "utils/timing.py", "utils/artifacts.py", "utils/io_session.py",
+            "eval/artifact.py", "eval/sweep.py"} <= guarded
+
+
 @pytest.mark.parametrize("profile", PROFILES)
 def test_config_profiles_equal(profile):
     ref = dataclasses.asdict(getattr(jconfig, profile)())

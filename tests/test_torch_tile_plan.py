@@ -1,4 +1,4 @@
-"""The tile plan of the tiled union-find behind kernels 1 and 3
+"""The tile plan of the tiled union-find behind the three label kernels
 (ops/tile_plan.py, csrc/tiled_union_find.cuh), on the CPU.
 
 The plan must cover the grid exactly, fit the card's shared memory, and the
@@ -7,8 +7,8 @@ PyTorch by `tile_pass_takes` / `seam_pass_takes`) must split the edge list
 of `cluster_labels.union_graph_edges` exactly: every edge in one pass and
 none in both (the kernels apply the intensity gate after the rule, so the
 rules must split every forward pair of occupied voxels in reach).
-Tolerance: none, these are integer facts. The kernels themselves run only on the card (tests/test_torch_cuda.py,
-chip_smoke.py).
+Tolerance: none, these are integer facts. The kernels themselves run only
+on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import numpy as np
@@ -128,3 +128,111 @@ def test_seam_grids_are_cases_the_plan_splits(shape):
                 2.0, 0.6)
             ids = torch.nonzero(occ3.reshape(-1)).squeeze(1)
             assert torch.unique(lab[ids]).numel() == 1, name
+
+
+@pytest.mark.parametrize("name", ["semantickitti", "tiny_test", "ragged"])
+def test_cc_plan_holds_no_intensity_plane(name):
+    """Kernel 2's plan (radius 1, no plane): the default tile clipped to
+    the grid, 13 offsets, and shared memory that counts the parent and list
+    words, the row masks, the offsets and the occupancy bytes only."""
+    shape = SHAPES[name]
+    p = tile_plan.plan(tuple(shape), 1)
+    TA, TR, TS = p.tile
+    V = TA * TR * TS
+    assert p.tile == tuple(min(t, g) for t, g in
+                           zip(tile_plan.DEFAULT_TILE, shape))
+    assert p.n_offsets == 13 and p.box == (TA + 1, TR + 2, TS + 2)
+    assert p.tile_smem == (8 * V + 4 * (TA * TR + 13)
+                           + tile_plan.TILES_PER_BLOCK * p.threads)
+    assert p.seam_smem == (8 * (tile_plan.PAIR_SLOTS + (TA + 1) * (TR + 2))
+                           + 4 * (V + 13)
+                           + 4 * (TA + 1) * (TR + 2) * (TS + 2))
+    shell = tile_plan.plan(tuple(shape), 2)
+    assert p.tile_smem <= shell.tile_smem - 8 * np.prod(shell.tile)
+    assert p.kernel_args == (TA, TR, TS, p.threads, p.tile_smem, p.seam_smem)
+    if name == "semantickitti":
+        assert (p.tile_smem, p.seam_smem) == (16564, 19540)
+
+
+CC_FORWARD_ROWS = ((0, 1), (1, -1), (1, 0), (1, 1))
+
+
+def cc_tile_pass_unions(p: tile_plan.TilePlan, occupied3: torch.Tensor):
+    """The unions of kernel 2's tile pass (unite_runs_shared in
+    csrc/tiled_union_find.cuh), mirrored in PyTorch, on an [A, R, S]
+    occupancy, as (src [U], dst [U]) flat ids. Within a tile: every occupied voxel with its left neighbour
+    along S (the kernel roots a run at its first voxel), and for each of
+    the four forward rows (da, dr) the voxel at s with the row's voxel at s,
+    unless both have occupied left neighbours (which make the same union);
+    where the row is empty at s, with its voxels at s - 1 and s + 1, each
+    unless the voxel's own neighbour on that side is occupied. Voxels
+    outside the tile count as empty. Together with the seam pass's edges
+    these connect exactly the 26-connected components."""
+    _, R, S = p.grid
+    flat = occupied3.reshape(-1)
+    ids = torch.nonzero(flat).squeeze(1)
+    (_, la, ea), (_, lr, er), (_, ls, es) = tile_plan._local(p, ids)
+
+    def bit(da, dr, ds):
+        inside = ((la + da < ea) & (lr + dr >= 0) & (lr + dr < er)
+                  & (ls + ds >= 0) & (ls + ds < es))
+        n = ids + (da * R + dr) * S + ds
+        return inside & flat[n.clamp(0, flat.numel() - 1)], n
+
+    src, dst = [], []
+
+    def take(mask, n):
+        src.append(ids[mask])
+        dst.append(n[mask])
+
+    xl, n_left = bit(0, 0, -1)
+    xr, _ = bit(0, 0, 1)
+    take(xl, n_left)
+    for da, dr in CC_FORWARD_ROWS:
+        (left, nl), (mid, nm), (right, nr) = (bit(da, dr, ds)
+                                              for ds in (-1, 0, 1))
+        take(mid & ~(xl & left), nm)
+        take(~mid & left & ~xl, nl)
+        take(~mid & right & ~xr, nr)
+    return torch.cat(src), torch.cat(dst)
+
+
+@pytest.mark.parametrize("density", [0.02, 0.3, 0.6])
+@pytest.mark.parametrize("name", ["tiny_test", "ragged", "seam-grids"])
+def test_cc_tile_pass_unions_and_seam_edges_give_the_components(name,
+                                                                density):
+    """Kernel 2's tile pass unites runs, not edges: its unions are cheb-1
+    edges inside a tile, fewer than the tile pass's edges, and with the
+    seam pass's edges they connect exactly the 26-connected components."""
+    if name == "seam-grids":
+        shape = (12, 20, 72)
+        grids = [torch.from_numpy(c[1]) for c in tile_plan.seam_grids(
+            shape, 1, 1.0, 2.0, seed=int(density * 100))]
+    else:
+        shape = tuple(SHAPES[name])
+        rng = np.random.default_rng(int(density * 100))
+        grids = [torch.from_numpy(rng.random(shape) < density)
+                 for _ in range(3)]
+    p = tile_plan.plan(shape, 1)
+    _, R, S = shape
+    for occ in grids:
+        ids, nbr, ok = clustering.occupied_pairs(
+            occ, clustering.forward_offsets(1))
+        src = ids[:, None].expand_as(nbr)[ok]
+        dst = nbr[ok]
+        d = torch.stack([dst // (R * S) - src // (R * S),
+                         (dst // S) % R - (src // S) % R,
+                         dst % S - src % S], 1)
+        in_tile = tile_plan.tile_pass_takes(p, src, d)
+        in_seam = tile_plan.seam_pass_takes(p, src, d)
+        assert bool((in_tile ^ in_seam).all())
+        us, ud = cc_tile_pass_unions(p, occ)
+        G = occ.numel()
+        tile_edges = set((src[in_tile] * G + dst[in_tile]).tolist())
+        unions = (torch.minimum(us, ud) * G + torch.maximum(us, ud)).tolist()
+        assert set(unions) <= tile_edges
+        assert len(unions) == len(set(unions)) <= len(tile_edges)
+        got = clustering.min_label_components(
+            G, ids, torch.cat([us, src[in_seam]]),
+            torch.cat([ud, dst[in_seam]]))
+        assert torch.equal(got, clustering.connected_components(occ))
