@@ -68,8 +68,25 @@ Phases (each raises on failure, so the script exits non-zero):
      `slam --data` over a KITTI-layout directory written from 12 frames of
      the loop scene (prefetcher, decoder, --ckpt-every 6), then `--resume`
      from the first checkpoint (trajectory within 1e-5 of the
-     uninterrupted run, cluster_labels launched on every frame); and the
-     host's time per scan on that path (decode, down-sample, pad, upload).
+     uninterrupted run, cluster_labels launched on every frame); the
+     host's time per scan on that path (decode, down-sample, pad, upload);
+     `times` on the time.txt that segdf wrote; and `features --frames 5`
+     (its lines identical to those of the port's CPU run of the same window
+     in phase 3, cluster_labels launched once per frame). No phase draws a
+     figure: the machine may have no matplotlib;
+ 13. the parallel layer (dr_using_scv_od_tpu_torch/parallel) on a world of
+     one rank under NCCL (a file store in a temporary directory, destroyed
+     at the end): sharded_run_window at full width on the 6-frame window
+     (cluster_labels launched 6 times; n_dynamic and removed identical to
+     run_window's on frames 0..4; ms/frame of both with CUDA events),
+     tp_voxel_stats on frame 0 (counts identical to the single-device
+     sums), pipelined_process_window on 3 frames (integer outputs identical
+     to process_window's), optimize_distributed and optimize_schur on
+     tests/mp_worker.py's 32-node loop (error below 0.25 of the start,
+     poses within the CPU tests' tolerances of posegraph.optimize, ms per
+     solve), measure_scaling's one-rank row and dryrun_multichip(1). A
+     multi-rank world needs one card per rank (NCCL refuses two ranks on
+     one card); tests/test_torch_parallel*.py hold it on the CPU with gloo.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -91,6 +108,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dr_using_scv_od_tpu_torch import cli, config, interop
 from dr_using_scv_od_tpu_torch.eval import metrics
@@ -98,9 +116,14 @@ from dr_using_scv_od_tpu_torch.models import (engine, odometry, pipeline,
                                               posegraph, scan_context)
 from dr_using_scv_od_tpu_torch.ops import cc_labels as cc
 from dr_using_scv_od_tpu_torch.ops import cluster_labels as cl
-from dr_using_scv_od_tpu_torch.ops import clustering, cuda_build
+from dr_using_scv_od_tpu_torch.ops import (clustering, cuda_build, geometry,
+                                          quantize, segment_ops, tile_plan)
 from dr_using_scv_od_tpu_torch.ops import ri3_labels as ri3
-from dr_using_scv_od_tpu_torch.ops import tile_plan
+from dr_using_scv_od_tpu_torch.parallel import (distributed_pgo, dryrun,
+                                               pipeline_parallel, scaling,
+                                               schur_pgo, sharded_pipeline,
+                                               tensor_parallel)
+from dr_using_scv_od_tpu_torch.parallel import mesh as pmesh
 from dr_using_scv_od_tpu_torch.tools import kernel_times, profile_stages
 from dr_using_scv_od_tpu_torch.utils import io_kitti, prefetch, synthetic
 
@@ -126,6 +149,11 @@ LOOP_FRAMES = 24
 SEAM_SHAPES = ((60, 72, 300), (61, 75, 301))
 CLI_SLAM_FRAMES = 12
 CLI_CKPT_EVERY = 6
+# phase 13's pose-graph solves: converged settings on the 32-node loop, and
+# each solve's distance to posegraph.optimize there, as
+# tests/test_torch_parallel_pgo.py holds them (CG 1e-4, Schur 2e-4)
+PGO_GN, PGO_CG = 15, 100
+PGO_ATOL = (1e-4, 2e-4)
 
 
 def _log(msg: str) -> None:
@@ -511,10 +539,11 @@ def _cli(argv) -> list:
     return lines
 
 
-def cli_phase(dev, cfg, res, metrics_judged, scene):
-    """Phase 12. `res` and `metrics_judged` are phase 3's run_window result
-    and judged-frame metrics on the window `segdf --frames 5` loads.
-    Returns {entry point: cluster_labels launches}."""
+def cli_phase(dev, cfg, res, cpu_res, metrics_judged, scene):
+    """Phase 12. `res`, `cpu_res` and `metrics_judged` are phase 3's
+    run_window results on the card and on the CPU and its judged-frame
+    metrics, on the window `segdf --frames 5` loads. Returns {entry point:
+    cluster_labels launches}."""
     N = cfg.shapes.max_points
     root = Path(tempfile.mkdtemp(prefix="cli_smoke_"))
     launches = {}
@@ -555,6 +584,22 @@ def cli_phase(dev, cfg, res, metrics_judged, scene):
          f"frames = {stage_ms[-1] / F_CHECK:.3f} ms/frame (time.txt, mask "
          f"fetched to the host), PCD point counts equal the mask on "
          f"{F_CHECK} frames")
+
+    # ---- times: the summary of the time.txt that segdf wrote
+    lines = _cli(["times", "--log", out / "time.txt"])
+    _check(lines == [f"  stage0: {stage_ms[0]:.2f} ms",
+                     f"  total: {stage_ms[0]:.2f} ms over 1 frames"],
+           f"cli times printed {lines!r} for a log of {stage_ms!r}")
+
+    # ---- features on the card: the lines of the port's CPU run of the
+    # same window (phase 3's), one launch a frame
+    lines, _ = counted("features", ["features", "--frames", F_CHECK])
+    want = cli.feature_report(win["xyz"], cpu_res, cfg)[1]
+    _check(lines == want and len(lines) >= 8,
+           f"cli features printed {lines!r}; the CPU run gives {want!r}")
+    _check(launches["features"] == F_CHECK, f"features launched "
+           f"cluster_labels {launches['features']} times over {F_CHECK} "
+           f"frames")
 
     # ---- odometry
     lines, _ = counted("odometry", ["odometry", "--frames", F_ODOM,
@@ -665,6 +710,132 @@ def cli_phase(dev, cfg, res, metrics_judged, scene):
          f"({kept // n} of {sum(len(r[0]) for r in raw) // n} points kept; "
          f"native prefetcher: {io_kitti._native() is not None})")
     shutil.rmtree(root)
+    return launches
+
+
+def loop_graph(F: int = 32, seed: int = 7) -> posegraph.PoseGraph:
+    """tests/mp_worker.py:93-117's graph, built with the port's geometry: a
+    1.5-turn helix of F poses, odometry with 0.02 noise per twist entry,
+    exact loop edges 0-31 and 3-27."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 1.5 * np.pi, F)
+    gt = np.tile(np.eye(4, dtype=np.float32), (F, 1, 1))
+    yaw = t + np.pi / 2
+    gt[:, 0, 0], gt[:, 0, 1] = np.cos(yaw), -np.sin(yaw)
+    gt[:, 1, 0], gt[:, 1, 1] = np.sin(yaw), np.cos(yaw)
+    gt[:, 0, 3], gt[:, 1, 3] = 5 * np.cos(t), 5 * np.sin(t)
+    gt = torch.from_numpy(gt)
+    noise = torch.from_numpy(rng.normal(0, 0.02, (F - 1, 6))
+                             .astype(np.float32))
+    rel = (geometry.inverse_se3(gt[:-1]) @ gt[1:]) @ geometry.exp_se3(noise)
+    li, lj = torch.tensor([0, 3]), torch.tensor([F - 1, F - 5])
+    lT = geometry.inverse_se3(gt[li]) @ gt[lj]
+    return posegraph.make_odometry_graph(posegraph.odometry_chain(rel), rel,
+                                         li, lj, lT, torch.ones(2))
+
+
+def parallel_phase(dev, cfg, scene):
+    """Phase 13: the parallel layer on a world of one rank under NCCL.
+    Returns the cluster_labels launches of sharded_run_window."""
+    N = cfg.shapes.max_points
+    store = Path(tempfile.mkdtemp(prefix="nccl_store_"))
+    pmesh.init_group(dev, 0, 1, f"file://{store / 'store'}")
+    try:
+        _check(dist.get_backend() == "nccl", "the group is not NCCL")
+        win = synthetic.render_window(scene, F_TIME, N)
+        xyz, inten, valid, poses = interop.window_from_numpy(win, dev)
+
+        # ---- sharded_run_window against run_window, counting launches
+        for k in KERNELS:
+            k.launches = 0
+        removed, states, n_dyn = sharded_pipeline.sharded_run_window(
+            xyz, inten, valid, poses, cfg)
+        torch.cuda.synchronize()
+        launches = cl.cluster_labels.launches
+        _check(launches == F_TIME, f"sharded_run_window launched "
+               f"cluster_labels {launches} times over {F_TIME} frames")
+        ref = pipeline.run_window(xyz, inten, valid, poses, cfg)
+        j = F_TIME - 1
+        _check(tuple(removed.shape) == (F_TIME, N)
+               and tuple(states.shape) == (F_TIME, cfg.shapes.max_clusters),
+               "sharded_run_window shapes")
+        _check(torch.equal(n_dyn[:j], ref.n_dynamic[:j]) and int(n_dyn[j]) == 0,
+               f"sharded n_dynamic {n_dyn.tolist()} against run_window's "
+               f"{ref.n_dynamic.tolist()}")
+        _check(torch.equal(removed[:j], ref.removed[:j]),
+               "sharded removed differs from run_window's on frames 0..F-2")
+        sharded_ms = _time_ms(lambda: sharded_pipeline.sharded_run_window(
+            xyz, inten, valid, poses, cfg), TIME_REPS) / F_TIME
+        single_ms = _time_ms(lambda: pipeline.run_window(
+            xyz, inten, valid, poses, cfg), TIME_REPS) / F_TIME
+        _log(f"sharded_run_window at one rank (NCCL): {sharded_ms:.3f} "
+             f"ms/frame against run_window {single_ms:.3f} ms/frame "
+             f"(F={F_TIME}, {TIME_REPS} reps, CUDA events); n_dynamic "
+             f"{n_dyn.tolist()}, {launches} cluster_labels launches")
+
+        # ---- tp_voxel_stats on frame 0 against the single-device sums
+        vg = tensor_parallel.tp_voxel_stats(xyz[0], inten[0], valid[0],
+                                            cfg.grid)
+        _, flat, fov = quantize.quantize(xyz[0], valid[0], cfg.grid)
+        g = cfg.grid.bin_num
+        count = segment_ops.segment_sum(fov.float(), torch.where(fov, flat, g),
+                                        g).to(torch.int32)
+        _check(torch.equal(vg.count, count) and int(count.sum()) > 0,
+               "tp_voxel_stats counts differ from the single-device sums")
+        _log(f"tp_voxel_stats: counts identical on {g} voxels "
+             f"({int((count > 0).sum())} occupied)")
+
+        # ---- the stage pipeline at one stage, F = 3
+        pp = pipeline_parallel.pipelined_process_window(
+            xyz[:3], inten[:3], valid[:3], cfg)
+        frames = pipeline.process_window(xyz[:3], inten[:3], valid[:3],
+                                         poses[:3], cfg)
+        st = frames.state
+        for name, a, b in (
+                ("point_voxel", pp.point_voxel, st.point_voxel),
+                ("point_cluster", pp.point_cluster, st.point_cluster),
+                ("label_grid", pp.label_grid, st.label_grid),
+                ("valid", pp.table.valid, st.clusters.valid),
+                ("type", pp.table.type, st.clusters.type),
+                ("n_points", pp.table.n_points, st.clusters.n_points),
+                ("n_clusters", pp.n_clusters, frames.n_clusters)):
+            _check(torch.equal(a, b), f"pipelined_process_window {name} "
+                   f"differs from process_window's")
+        _log(f"pipelined_process_window: integer outputs identical on 3 "
+             f"frames, n_clusters {pp.n_clusters.tolist()}")
+
+        # ---- the two distributed pose-graph solves on the 32-node loop
+        pg = loop_graph()
+        pg = posegraph.PoseGraph(*(a.to(dev) for a in pg))
+        err0 = float((posegraph.residuals(pg) ** 2).sum())
+        want = posegraph.optimize(pg, gn_iters=PGO_GN, cg_iters=PGO_CG).poses
+        solves = {
+            "optimize_distributed": lambda: distributed_pgo
+            .optimize_distributed(pg, gn_iters=PGO_GN, cg_iters=PGO_CG),
+            "optimize_schur": lambda: schur_pgo.optimize_schur(pg,
+                                                               gn_iters=8)}
+        for (name, fn), atol in zip(solves.items(), PGO_ATOL):
+            got, err = fn()
+            diff = float((got - want).abs().max())
+            _check(bool(torch.isfinite(got).all()) and float(err) < 0.25 * err0,
+                   f"{name}: error {float(err)} against {err0} at the start")
+            _check(diff <= atol, f"{name} differs from posegraph.optimize "
+                   f"by {diff} > {atol}")
+            _log(f"{name}: error {err0:.5f} -> {float(err):.6f}, "
+                 f"{_time_ms(fn, TIME_REPS):.3f} ms per solve, poses within "
+                 f"{diff:.3e} of posegraph.optimize ({PGO_GN} x {PGO_CG})")
+
+        # ---- the scaling harness's one-rank row, the dry run
+        rows = scaling.measure_scaling(xyz, inten, valid, poses, cfg,
+                                       device_counts=[1], reps=TIME_REPS)
+        _check(len(rows) == 1 and rows[0]["devices"] == 1
+               and rows[0]["frames_per_s"] > 0
+               and rows[0]["efficiency"] == 1.0, f"scaling rows {rows}")
+        _log(f"measure_scaling one-rank row: {rows[0]}")
+        dryrun.dryrun_multichip(1)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store)
     return launches
 
 
@@ -935,12 +1106,17 @@ def main() -> int:
          f"grids, cc_labels on {n_seam_cc}, x {CHECK_REPS} launches")
 
     # ---- 12. the command-line entry points at full width
-    cli_launches = cli_phase(dev, cfg, res, m_judged, scene)
+    cli_launches = cli_phase(dev, cfg, res, ref, m_judged, scene)
+
+    # ---- 13. the parallel layer at one rank under NCCL
+    sharded_launches = parallel_phase(dev, cfg, scene)
 
     # cluster_labels: launches of the engine's path (phase 10); phase 3
-    # counted run_window's and phase 12 the entry points'
+    # counted run_window's, phase 12 the entry points' and phase 13 the
+    # sharded window's
     _log(f"cluster_labels launches: run_window {launches}, engine "
-         f"{slam_launches}, entry points {cli_launches}")
+         f"{slam_launches}, entry points {cli_launches}, sharded window "
+         f"{sharded_launches}")
     launch_counts = {"cluster_labels": slam_launches,
                      "cc_labels": prof_launches["cc_labels"],
                      "ri3_labels": prof_launches["ri3_labels"]}

@@ -11,7 +11,8 @@ Every subcommand that computes takes `--device` (default `cuda`): the
 pipeline, the odometry and the engine run on that device, the label
 kernel on the card. With the default and no CUDA GPU visible the command
 raises; it never carries on on the CPU. `--device cpu` runs the plain
-PyTorch path.
+PyTorch path. `times`, `intensity-report` and `view` read files only;
+`view` and every `--plot` figure need matplotlib.
 
 Run `python -m dr_using_scv_od_tpu_torch.cli <cmd> --help`.
 """
@@ -522,6 +523,118 @@ def cmd_sydney(args):
     return 0
 
 
+def cmd_times(args):
+    """Per-stage timing summary from a StageTimer log
+    (tool/time.py analog, measured stages only)."""
+    from .eval import plots, reports
+
+    res = reports.parse_time_log(args.log,
+                                 args.names.split(",") if args.names
+                                 else None)
+    for k, v in res["summary"].items():
+        print(f"  {k}: {v:.2f} ms")
+    print(f"  total: {res['total_ms']:.2f} ms over {len(res['rows'])} frames")
+    if args.plot:
+        plots.plot_stage_times(res["summary"], args.plot)
+        print(f"figure -> {args.plot}")
+    return 0
+
+
+def feature_report(xyz: np.ndarray, res, cfg):
+    """(per-class stats, printed lines) of `features` for frame 0 of a
+    run_window result `res` over the [F, N, 3] points `xyz`."""
+    from .eval import reports
+
+    f = 0  # report on the first frame (stats pool across clusters)
+    stats = reports.per_class_feature_stats(
+        np.asarray(xyz[f]), res.point_cluster[f].cpu().numpy(),
+        res.tables.type[f].cpu().numpy(), cfg.shapes.max_clusters,
+        res.tables.valid[f].cpu().numpy())
+    lines = []
+    for cls, feats in stats.items():
+        n = next(iter(feats.values()))["n"]
+        lines.append(f"{cls} (n={n}):")
+        for name, st in feats.items():
+            lines.append(f"  {name}: {st['mean']:.3f} ± {st['std']:.3f} "
+                         f"[{st['min']:.3f}, {st['max']:.3f}]")
+    return stats, lines
+
+
+def cmd_features(args):
+    """Per-class geometric feature statistics from a pipeline run
+    (tool/feature.py analog, computed instead of hard-coded)."""
+    from . import config
+    from .eval import plots
+    from .models import pipeline
+
+    cfg = getattr(config, args.profile)()
+    win_t, win = _load_window(args, cfg)
+    res = pipeline.run_window(win_t["xyz"], win_t["intensity"],
+                              win_t["valid"], win_t["poses"], cfg)
+    stats, lines = feature_report(win["xyz"], res, cfg)
+    for line in lines:
+        print(line)
+    if args.plot:
+        plots.plot_feature_box(stats, args.plot)
+        print(f"figure -> {args.plot}")
+    return 0
+
+
+def cmd_intensity_report(args):
+    """Histogram of per-voxel intensity dumps
+    (tool/readIntensity.py analog)."""
+    from .eval import plots, reports
+
+    av, cov = reports.read_intensity_dump(args.prefix)
+    h = reports.intensity_histogram(av, args.bins)
+    print(f"voxels={h['n']}  mean={h['mean']:.3f}  std={h['std']:.3f}")
+    print("  hist:", " ".join(str(int(c)) for c in h["counts"]))
+    hc = reports.intensity_histogram(cov, args.bins)
+    print(f"cov:    mean={hc['mean']:.3f}  std={hc['std']:.3f}")
+    if args.plot:
+        plots.plot_intensity_hist(h, args.plot)
+        print(f"figure -> {args.plot}")
+    return 0
+
+
+def cmd_view(args):
+    """Headless snapshot of a PCD artifact (tool/viewer.py analog: the
+    reference pops an open3d window on a seg/<id>_seg.pcd; here top-down +
+    side orthographic projections go to a PNG). Needs matplotlib."""
+    from .eval.plots import _pyplot
+    from .utils.io_session import read_pcd_fields
+
+    plt = _pyplot()
+    data, fields = read_pcd_fields(args.pcd)
+    idx = {f: i for i, f in enumerate(fields)}
+    xyz = data[:, [idx["x"], idx["y"], idx["z"]]]
+    if "rgb" in idx and not args.uniform:
+        # contiguous copy: numpy < 1.23 rejects dtype views of strided cols
+        packed = np.ascontiguousarray(data[:, idx["rgb"]]).view(np.uint32)
+        colors = np.stack([(packed >> 16) & 0xFF, (packed >> 8) & 0xFF,
+                           packed & 0xFF], axis=1) / 255.0
+    else:
+        colors = np.tile(np.array([[0.0, 0.0, 1.0]]), (len(xyz), 1))
+    if len(xyz) > args.max_points:
+        sel = np.random.default_rng(0).choice(len(xyz), args.max_points,
+                                              replace=False)
+        xyz, colors = xyz[sel], colors[sel]
+    fig, axes = plt.subplots(1, 2, figsize=(12, 6))
+    for ax, (a, b), name in zip(axes, [(0, 1), (0, 2)],
+                                ["top-down (x,y)", "side (x,z)"]):
+        ax.scatter(xyz[:, a], xyz[:, b], s=args.point_size, c=colors,
+                   linewidths=0)
+        ax.set_title(name)
+        ax.set_aspect("equal")
+        ax.set_facecolor("white")
+    out = args.out or (Path(args.pcd).stem + ".png")
+    fig.tight_layout()
+    fig.savefig(out, dpi=110)
+    plt.close(fig)
+    print(f"{len(xyz)} pts -> {out}")
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="dr_using_scv_od_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -663,6 +776,35 @@ def main(argv=None):
     sp.add_argument("--bin", required=True)
     sp.add_argument("--out", required=True)
     sp.set_defaults(fn=cmd_sydney)
+
+    sp = sub.add_parser("times", help="stage-timing summary from a log")
+    sp.add_argument("--log", required=True)
+    sp.add_argument("--names", default=None, help="comma-separated stages")
+    sp.add_argument("--plot", default=None)
+    sp.set_defaults(fn=cmd_times)
+
+    sp = sub.add_parser("features",
+                        help="per-class geometric feature statistics")
+    common(sp)
+    sp.add_argument("--plot", default=None)
+    sp.set_defaults(fn=cmd_features)
+
+    sp = sub.add_parser("view", help="PCD -> PNG snapshot (viewer analog)")
+    sp.add_argument("--pcd", required=True)
+    sp.add_argument("--out", default=None)
+    sp.add_argument("--uniform", action="store_true",
+                    help="ignore rgb, paint uniform blue (as the reference)")
+    sp.add_argument("--point-size", type=float, default=2.0)
+    sp.add_argument("--max-points", type=int, default=200_000)
+    sp.set_defaults(fn=cmd_view)
+
+    sp = sub.add_parser("intensity-report",
+                        help="histogram of recorded intensity dumps")
+    sp.add_argument("--prefix", required=True,
+                    help="dump prefix (expects <prefix>_av.txt/_cov.txt)")
+    sp.add_argument("--bins", type=int, default=10)
+    sp.add_argument("--plot", default=None)
+    sp.set_defaults(fn=cmd_intensity_report)
 
     args = p.parse_args(argv)
     return args.fn(args)

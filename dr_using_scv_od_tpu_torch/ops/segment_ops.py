@@ -1,5 +1,6 @@
 """Segment reductions keyed by voxel, patch or cluster id (counterpart of
-the parts of dr_using_scv_od_tpu/ops/segment_ops.py that run_window uses).
+the parts of dr_using_scv_od_tpu/ops/segment_ops.py that run_window and
+models/features.py use).
 
 The JAX package computes large histograms as one-hot matmuls and reads
 small tables through select trees, because scatters and gathers are slow
@@ -52,6 +53,23 @@ def segment_sum_planned(x: torch.Tensor, order: torch.Tensor,
     # lengths count exactly the rows of x
     return torch.segment_reduce(x[order], "sum", lengths=lengths,
                                 axis=0, unsafe=True)[:num]
+
+
+def segment_count(ids: torch.Tensor, valid: torch.Tensor, num: int
+                  ) -> torch.Tensor:
+    """[num] int32 count of the `valid` rows of each id in [0, num)
+    (segment_ops.py:28)."""
+    return torch.bincount(_bucket(ids, num, valid),
+                          minlength=num + 1)[:num].to(torch.int32)
+
+
+def segment_mean(x: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                 num: int) -> torch.Tensor:
+    """Per-id mean of the `valid` rows of x ([M] or [M, K]); empty ids give
+    0 (segment_ops.py:239). The sums are `segment_sum`'s, in row order."""
+    s = segment_sum(x, torch.where(valid, ids, -1), num)
+    n = torch.clamp_min(segment_count(ids, valid, num).to(x.dtype), 1)
+    return s / (n[:, None] if x.dim() > 1 else n)
 
 
 def grid_label_counts(labels: torch.Tensor, num: int) -> torch.Tensor:

@@ -65,13 +65,47 @@ def test_no_jax_import_statement(path):
 
 def test_guard_covers_the_entry_points_and_io_modules():
     """The two guards above walk every file of the port: the command line,
-    the dataset I/O and the evaluation tools are among them."""
+    the dataset I/O, the evaluation tools, the leaf modules of slice D2 and
+    the parallel layer are among them."""
     guarded = {p.relative_to(PORT).as_posix() for p in _port_sources()
                if PORT in p.parents}
     assert {"cli.py", "config_yaml.py", "utils/io_kitti.py",
             "utils/prefetch.py", "utils/io_sydney.py", "utils/logging.py",
             "utils/timing.py", "utils/artifacts.py", "utils/io_session.py",
-            "eval/artifact.py", "eval/sweep.py"} <= guarded
+            "eval/artifact.py", "eval/sweep.py", "eval/reports.py",
+            "eval/plots.py", "models/features.py", "models/object_map.py",
+            "ops/intensity.py", "parallel/__init__.py", "parallel/mesh.py",
+            "parallel/sharded_pipeline.py", "parallel/tensor_parallel.py",
+            "parallel/pipeline_parallel.py", "parallel/distributed_pgo.py",
+            "parallel/schur_pgo.py", "parallel/scaling.py",
+            "parallel/dryrun.py"} <= guarded
+
+
+def test_every_jax_module_has_its_port():
+    """Each module of the JAX package has a counterpart of the same path in
+    the port, but for the Pallas kernels (ported as CUDA kernels under
+    ops/ and csrc/)."""
+    jax_pkg = ROOT / "dr_using_scv_od_tpu"
+    missing = sorted(
+        p.relative_to(jax_pkg).as_posix() for p in jax_pkg.rglob("*.py")
+        if "pallas" not in p.parts
+        and not (PORT / p.relative_to(jax_pkg)).exists())
+    assert missing == [], missing
+
+
+def test_worker_of_the_parallel_tests_loads_no_jax():
+    """tests/torch_mp_worker.py runs in the spawned ranks: torch, numpy and
+    the port only."""
+    path = ROOT / "tests" / "torch_mp_worker.py"
+    test_no_jax_import_statement(path)
+    code = ("import sys; sys.path.insert(0, 'tests')\n"
+            "import torch_mp_worker\n"
+            "import dr_using_scv_od_tpu_torch.parallel.dryrun\n"
+            "sys.exit(any(m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
+            "'dr_using_scv_od_tpu') for m in sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("profile", PROFILES)
