@@ -86,7 +86,20 @@ Phases (each raises on failure, so the script exits non-zero):
      poses within the CPU tests' tolerances of posegraph.optimize, ms per
      solve), measure_scaling's one-rank row and dryrun_multichip(1). A
      multi-rank world needs one card per rank (NCCL refuses two ranks on
-     one card); tests/test_torch_parallel*.py hold it on the CPU with gloo.
+     one card); tests/test_torch_parallel*.py hold it on the CPU with gloo;
+ 14. the stage profiler (tools/profile_stages.py) over every component,
+     printing the sub-stage table; on frame 0's grid, compact_labels +
+     labels_to_grid against compact_grid_labels (identical), voxel_stats
+     against voxel_stats_moments (counts identical, mean / var within
+     1e-5), voxel_planarity against the moment planarity on the voxels
+     the histograms use, both branches of recognize's point-level fallback
+     against the grid path (identical types), refine_by_intensity at 24
+     rounds against kernel 1 (identical); voxel_downsample of a
+     131,072-point scan at 0.08 m (keep-mask identical on the card and the
+     CPU; its card ms beside the host down-sample's ms); entry() (one
+     kernel-1 launch, integer outputs identical to the CPU run of the same
+     arguments); tools/drive_e2e.py (PR > 99 / RR > 96); the cascade
+     experiment's ours_window on 6 frames (card and CPU identical).
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -110,10 +123,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dr_using_scv_od_tpu_torch import cli, config, interop
+from dr_using_scv_od_tpu_torch import cli, config, entry, interop
 from dr_using_scv_od_tpu_torch.eval import metrics
-from dr_using_scv_od_tpu_torch.models import (engine, odometry, pipeline,
-                                              posegraph, scan_context)
+from dr_using_scv_od_tpu_torch.models import (engine, odometry, patchwork,
+                                              pipeline, posegraph,
+                                              recognition, scan_context,
+                                              segmentation)
 from dr_using_scv_od_tpu_torch.ops import cc_labels as cc
 from dr_using_scv_od_tpu_torch.ops import cluster_labels as cl
 from dr_using_scv_od_tpu_torch.ops import (clustering, cuda_build, geometry,
@@ -124,7 +139,8 @@ from dr_using_scv_od_tpu_torch.parallel import (distributed_pgo, dryrun,
                                                schur_pgo, sharded_pipeline,
                                                tensor_parallel)
 from dr_using_scv_od_tpu_torch.parallel import mesh as pmesh
-from dr_using_scv_od_tpu_torch.tools import kernel_times, profile_stages
+from dr_using_scv_od_tpu_torch.tools import (cascade_experiment, drive_e2e,
+                                             kernel_times, profile_stages)
 from dr_using_scv_od_tpu_torch.utils import io_kitti, prefetch, synthetic
 
 F_CHECK = 5        # window judged against the accuracy floors
@@ -154,6 +170,12 @@ CLI_CKPT_EVERY = 6
 # tests/test_torch_parallel_pgo.py holds them (CG 1e-4, Schur 2e-4)
 PGO_GN, PGO_CG = 15, 100
 PGO_ATOL = (1e-4, 2e-4)
+# phase 14: voxel_stats against voxel_stats_moments (the tolerance of
+# tests/test_torch_stage_parts.py), the down-sampled scan, the cascade
+STATS_ATOL = 1e-5
+DOWNSAMPLE_POINTS = 131072
+DOWNSAMPLE_LEAF = 0.08
+CASCADE_FRAMES = 6
 
 
 def _log(msg: str) -> None:
@@ -839,6 +861,138 @@ def parallel_phase(dev, cfg, scene):
     return launches
 
 
+def stage_parts_phase(dev, cfg, scene):
+    """Phase 14: the stage profiler's every component, the stage parts it
+    reaches held against the pipeline's forms on frame 0, voxel_downsample,
+    entry(), drive_e2e and the cascade's ours_window. Returns the kernel
+    launches of the phase by kernel name."""
+    t_phase = time.perf_counter()
+    N, G, C = cfg.shapes.max_points, cfg.grid.bin_num, cfg.shapes.max_clusters
+    seg = cfg.seg
+    for k in KERNELS:
+        k.launches = 0
+
+    # ---- every component of the stage profiler
+    prof = profile_stages.run(profile_stages.COMPONENTS, cfg, dev)
+    torch.cuda.synchronize()
+    _log(f"stage profiler: {len(prof)} timers; sub-stage table (ms): "
+         f"{json.dumps(prof)}")
+
+    # ---- the stage parts on frame 0's grid against the pipeline's forms
+    win = synthetic.render_window(scene, 1, N)
+    x0, i0, v0, _ = (t[0] for t in interop.window_from_numpy(win, dev))
+    pw = patchwork.estimate_ground(x0, v0, cfg.patchwork)
+    _, flat, in_fov = quantize.quantize(x0, pw.nonground, cfg.grid)
+    grid, _ = quantize.voxel_stats_moments(flat, x0, i0, in_fov, cfg.grid)
+    narrow = quantize.voxel_stats(flat, i0, in_fov, cfg.grid)
+    _check(torch.equal(narrow.count, grid.count), "voxel_stats counts differ")
+    stats_err = max(float((getattr(narrow, k) - getattr(grid, k)).abs().max())
+                    for k in ("intensity_mean", "intensity_var"))
+    _check(stats_err <= STATS_ATOL, f"voxel_stats mean / var differ from "
+           f"voxel_stats_moments by {stats_err:.3e}")
+    occ3 = grid.occupied.reshape(cfg.grid.shape)
+    root = cl.cluster_labels(occ3, grid.intensity_mean, grid.intensity_var,
+                             seg.search_c, seg.intensity_cov,
+                             seg.intensity_diff, seg.far_range_frac)
+    _, pc2, lg2, _, _ = clustering.compact_grid_labels(
+        root, grid.occupied, flat, in_fov, C, G)
+    point_roots = torch.where(in_fov, root[torch.clamp(flat, 0, G - 1).long()],
+                              G)
+    roots, pc, _, _ = clustering.compact_labels(point_roots, in_fov, C, G)
+    lg = clustering.labels_to_grid(roots, root, grid.occupied, G)
+    _check(torch.equal(lg, lg2) and torch.equal(pc, pc2),
+           "compact_labels + labels_to_grid != compact_grid_labels")
+    fix = dataclasses.replace(cfg, seg=dataclasses.replace(seg, iteration=24))
+    refined = segmentation.refine_by_intensity(cc.cc_labels(occ3), grid, fix)
+    _check(torch.equal(refined, root),
+           "refine_by_intensity(iteration=24) != cluster_labels")
+    res, point_voxel, fgrid = segmentation.segment_frame(
+        x0, i0, pw.nonground, pw.ground, pw.dropped, cfg)
+    planar = recognition.voxel_planarity(x0, point_voxel,
+                                         res.point_cluster >= 0, cfg)
+    used = res.label_grid >= 0
+    _check(torch.equal(planar[used], res.planar_vox[used]),
+           "voxel_planarity != voxel_planarity_from_moments on used voxels")
+    want, _ = recognition.recognize(res.clusters, res.n_planar, cfg)
+    for branch, extra in (("points", {}), ("grid", dict(
+            label_grid=res.label_grid, voxel_count=fgrid.count))):
+        got, _ = recognition.recognize_points(
+            res.clusters, x0, res.point_cluster, point_voxel, cfg, **extra)
+        _check(torch.equal(got.type, want.type), f"recognize's {branch} "
+               f"fallback: types differ from the grid path")
+    _log(f"stage parts on frame 0: compact_labels + labels_to_grid == "
+         f"compact_grid_labels ({int(roots.ne(G).sum())} clusters), "
+         f"voxel_stats within {stats_err:.3e} of voxel_stats_moments, "
+         f"refine_by_intensity(24) == cluster_labels, planarity and both "
+         f"recognition fallbacks equal the grid path "
+         f"({int(want.type.ge(0).sum())} typed clusters)")
+
+    # ---- voxel_downsample of a 131,072-point scan, card against CPU
+    both = synthetic.render_window(scene, 2, N)
+    pts = np.concatenate([both["xyz"][f][both["valid"][f]] for f in (0, 1)])
+    pts = np.ascontiguousarray(pts[:DOWNSAMPLE_POINTS])
+    _check(len(pts) == DOWNSAMPLE_POINTS, "too few points for the scan")
+    xyz_d = torch.from_numpy(pts).to(dev)
+    ok_d = torch.ones(len(pts), dtype=torch.bool, device=dev)
+    keep = quantize.voxel_downsample(xyz_d, ok_d, DOWNSAMPLE_LEAF)
+    keep_cpu = quantize.voxel_downsample(torch.from_numpy(pts),
+                                         ok_d.cpu(), DOWNSAMPLE_LEAF)
+    _check(torch.equal(keep.cpu(), keep_cpu),
+           "voxel_downsample keep-masks differ on the card and the CPU")
+    dev_ms = _time_ms(lambda: quantize.voxel_downsample(
+        xyz_d, ok_d, DOWNSAMPLE_LEAF), KERNEL_REPS)
+    t0 = time.perf_counter()
+    for _ in range(TIME_REPS):
+        host_keep = io_kitti._voxel_downsample_np(pts, DOWNSAMPLE_LEAF)
+    host_ms = (time.perf_counter() - t0) * 1e3 / TIME_REPS
+    _log(f"voxel_downsample, {len(pts)} points at {DOWNSAMPLE_LEAF} m: card "
+         f"{dev_ms:.4f} ms (CUDA events, {KERNEL_REPS} reps), "
+         f"{int(keep.sum())} kept; the host's io_kitti._voxel_downsample_np "
+         f"{host_ms:.3f} ms, {int(host_keep.sum())} kept")
+
+    # ---- entry(): one call, one kernel-1 launch, equal to the CPU run
+    fn, args = entry.entry()
+    before = cl.cluster_labels.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    n_entry = cl.cluster_labels.launches - before
+    _check(n_entry == 1, f"entry() launched cluster_labels {n_entry} times")
+    ref = fn(*(a.cpu() for a in args))
+    for name in ("label_grid", "point_voxel", "point_cluster", "point_route"):
+        _check(torch.equal(getattr(out.state, name).cpu(),
+                           getattr(ref.state, name)),
+               f"entry(): {name} differs from the CPU run")
+    for name in ("valid", "n_points", "n_voxels", "type"):
+        _check(torch.equal(getattr(out.state.clusters, name).cpu(),
+                           getattr(ref.state.clusters, name)),
+               f"entry(): clusters.{name} differs from the CPU run")
+    _check(int(out.n_clusters) == int(ref.n_clusters) > 0,
+           "entry(): cluster counts differ")
+
+    # ---- drive_e2e at full width on the card
+    lines, _, m = drive_e2e.drive(dev)
+    _log("drive_e2e: " + " | ".join(lines))
+    _check(m.pr > 99.0 and m.rr > 96.0, "drive_e2e: PR > 99 / RR > 96 missed")
+
+    # ---- the cascade's ours_window: card against the CPU
+    ccfg = cascade_experiment.experiment_config()
+    cwin, frames, pairs = cascade_experiment.prepare_frames(
+        ccfg, CASCADE_FRAMES, device=dev)
+    rem = cascade_experiment.ours_window(frames, ccfg, 0.5, cwin, device=dev)
+    rem_cpu = cascade_experiment.ours_window(frames, ccfg, 0.5, cwin,
+                                             device="cpu")
+    _check(np.array_equal(rem, rem_cpu),
+           "cascade ours_window differs on the card and the CPU")
+    rem_o = cascade_experiment.oracle_window(frames, pairs, ccfg, 0.5)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    _log(f"cascade ({CASCADE_FRAMES} frames, occupancy 0.5): ours_window "
+         f"removes {int(rem.sum())} points on the card and the CPU alike, "
+         f"the in-loop oracle {int(rem_o.sum())}; phase 14 launches "
+         f"{launches} in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1111,15 +1265,23 @@ def main() -> int:
     # ---- 13. the parallel layer at one rank under NCCL
     sharded_launches = parallel_phase(dev, cfg, scene)
 
+    # ---- 14. the stage profiler's components, the stage parts and tools
+    parts_launches = stage_parts_phase(dev, cfg, scene)
+
     # cluster_labels: launches of the engine's path (phase 10); phase 3
     # counted run_window's, phase 12 the entry points' and phase 13 the
     # sharded window's
     _log(f"cluster_labels launches: run_window {launches}, engine "
          f"{slam_launches}, entry points {cli_launches}, sharded window "
-         f"{sharded_launches}")
+         f"{sharded_launches}, stage parts and tools "
+         f"{parts_launches['cluster_labels']}")
+    # each kernel's launches on the engine's path (kernel 1) or the stage
+    # profiler's (kernels 2 and 3, phase 7), plus phase 14's
     launch_counts = {"cluster_labels": slam_launches,
                      "cc_labels": prof_launches["cc_labels"],
                      "ri3_labels": prof_launches["ri3_labels"]}
+    for name, n in parts_launches.items():
+        launch_counts[name] += n
     errs["cluster_labels"] = max(errs["cluster_labels"], max_err)
     replaces = {
         "cluster_labels": "dr_using_scv_od_tpu/ops/pallas/fused_seg.py:56",

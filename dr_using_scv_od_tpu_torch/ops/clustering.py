@@ -132,3 +132,41 @@ def compact_grid_labels(root_grid: torch.Tensor, occupied: torch.Tensor,
     point_cluster = torch.where(in_fov, label_grid[safe_flat], -1)
     n_dropped = torch.sum(in_fov & (point_cluster < 0)).to(torch.int32)
     return roots, point_cluster, label_grid, n_clusters, n_dropped
+
+
+def compact_labels(point_roots: torch.Tensor, point_valid: torch.Tensor,
+                   max_clusters: int, sentinel: int):
+    """Compact cluster ids [0, C) from per-point root labels by a sorted
+    unique (clustering.py:201-225): the C smallest distinct roots of the
+    valid points, in ascending order.
+
+    Returns (roots [C] int32 padded with `sentinel`,
+             point_cluster [N] int32 (-1 invalid or past the cap),
+             n_clusters scalar int32,
+             n_dropped_points scalar int32: valid points whose cluster fell
+             beyond the cap)."""
+    C = max_clusters
+    keys = torch.where(point_valid, point_roots, sentinel)
+    uniq = torch.unique(keys)[:C]
+    roots = torch.full((C,), sentinel, dtype=torch.int32,
+                       device=keys.device)
+    roots[:uniq.numel()] = uniq.to(torch.int32)
+    pos = torch.clamp(torch.searchsorted(roots, keys.to(torch.int32)), 0,
+                      C - 1)
+    hit = (roots[pos] == keys) & point_valid
+    point_cluster = torch.where(hit, pos, -1).to(torch.int32)
+    n_clusters = (roots != sentinel).sum().to(torch.int32)
+    n_dropped = (point_valid & ~hit).sum().to(torch.int32)
+    return roots, point_cluster, n_clusters, n_dropped
+
+
+def labels_to_grid(roots: torch.Tensor, root_grid: torch.Tensor,
+                   occ: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """[G] int32 compact-cluster-id grid from per-voxel root labels and the
+    sorted `roots` of `compact_labels`; empty voxels and voxels of dropped
+    clusters get -1 (clustering.py:228-238)."""
+    keys = torch.where(occ, root_grid, sentinel).to(roots.dtype)
+    pos = torch.clamp(torch.searchsorted(roots, keys), 0,
+                      roots.shape[0] - 1)
+    hit = (roots[pos] == keys) & occ
+    return torch.where(hit, pos, -1).to(torch.int32)

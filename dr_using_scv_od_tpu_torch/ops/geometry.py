@@ -27,6 +27,11 @@ def range2d(xyz: torch.Tensor) -> torch.Tensor:
     return sqrt_f32(x * x + y * y)
 
 
+def range3d(xyz: torch.Tensor) -> torch.Tensor:
+    """3-D range of [..., >=3] points."""
+    return sqrt_f32((xyz[..., :3] ** 2).sum(-1))
+
+
 def polar_angle_deg(xyz: torch.Tensor) -> torch.Tensor:
     """Polar angle in degrees, [0, 360), 0 at the origin
     (getPolarAngle, utility.h:376-387)."""
@@ -79,6 +84,19 @@ def pose_to_matrix(xyzrpy: torch.Tensor) -> torch.Tensor:
     """[..., 6] (x,y,z,roll,pitch,yaw) -> [...,4,4] homogeneous transform."""
     R = euler_to_matrix(xyzrpy[..., 3], xyzrpy[..., 4], xyzrpy[..., 5])
     return _se3(R, xyzrpy[..., :3, None])
+
+
+def matrix_to_euler(R: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotations -> [..., 3] (roll, pitch, yaw), with the
+    singularity guard of rotationMatrixToEulerAngles (utility.h:488-505)."""
+    sy = sqrt_f32(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2)
+    singular = sy < 1e-6
+    x = torch.where(singular, torch.atan2(-R[..., 1, 2], R[..., 1, 1]),
+                    torch.atan2(R[..., 2, 1], R[..., 2, 2]))
+    y = torch.atan2(-R[..., 2, 0], sy)
+    z = torch.where(singular, torch.zeros_like(sy),
+                    torch.atan2(R[..., 1, 0], R[..., 0, 0]))
+    return torch.stack([x, y, z], dim=-1)
 
 
 # se(3) exponential and hat maps for the GICP Gauss-Newton solver

@@ -1,11 +1,13 @@
 """Segment reductions keyed by voxel, patch or cluster id (counterpart of
-the parts of dr_using_scv_od_tpu/ops/segment_ops.py that run_window and
-models/features.py use).
+dr_using_scv_od_tpu/ops/segment_ops.py).
 
 The JAX package computes large histograms as one-hot matmuls and reads
 small tables through select trees, because scatters and gathers are slow
 on a TPU. Here they are direct: `bincount` with exact float64 weights,
-`scatter_reduce` for min/max, and plain indexing for table lookups.
+`scatter_reduce` for min/max, and plain indexing for table lookups. So
+two JAX functions have no counterpart: `small_table_lookup` (a select
+tree in place of an indexed gather) and `segment_minmax_bcast` (a
+broadcast compare in place of the min/max scatter of `segment_minmax`).
 """
 
 from __future__ import annotations
@@ -72,9 +74,15 @@ def segment_mean(x: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
     return s / (n[:, None] if x.dim() > 1 else n)
 
 
-def grid_label_counts(labels: torch.Tensor, num: int) -> torch.Tensor:
+def grid_label_counts(labels: torch.Tensor, num: int,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
     """[num] int32 histogram of the labels in [0, num); others ignored
-    (replaces the one-hot matmul of segment_ops.py:35-83)."""
+    (replaces the one-hot matmul of segment_ops.py:35-83). With `weights`
+    (integer-valued, same shape) the [num] float32 weight sums instead,
+    exact in float64 for any integer weights below 2**53, so the JAX
+    function's `weight_bound` has no counterpart."""
+    if weights is not None:
+        return grid_label_hist_multi(labels, num, [weights])[1][0]
     return torch.bincount(_bucket(labels, num),
                           minlength=num + 1)[:num].to(torch.int32)
 
@@ -93,16 +101,45 @@ def grid_label_hist_multi(labels: torch.Tensor, num: int,
     return counts, sums
 
 
+def grid_label_hist2(labels: torch.Tensor, num: int, weights: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weighted histogram [num] f32, counts [num] int32): the JAX
+    function's order of `grid_label_hist_multi`'s two outputs
+    (segment_ops.py:127)."""
+    counts, (wsum,) = grid_label_hist_multi(labels, num, [weights])
+    return wsum, counts
+
+
+def _segment_extreme(x: torch.Tensor, ids: torch.Tensor,
+                     valid: torch.Tensor, num: int, reduce: str,
+                     empty: float) -> torch.Tensor:
+    seg = _bucket(ids, num, valid)
+    if x.dim() > 1:
+        seg = seg.reshape(-1, *([1] * (x.dim() - 1))).expand_as(x)
+    out = torch.full((num + 1,) + tuple(x.shape[1:]), empty, dtype=x.dtype,
+                     device=x.device)
+    return out.scatter_reduce(0, seg, x, reduce)[:num]
+
+
+def segment_min(x: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                num: int) -> torch.Tensor:
+    """Per-id minimum of the float rows of x ([N] or [N, D]) with
+    `valid & ids >= 0`; empty ids give +inf (segment_ops.py:170)."""
+    return _segment_extreme(x, ids, valid, num, "amin", float("inf"))
+
+
+def segment_max(x: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                num: int) -> torch.Tensor:
+    """Per-id maximum, as `segment_min`; empty ids give -inf
+    (segment_ops.py:178)."""
+    return _segment_extreme(x, ids, valid, num, "amax", float("-inf"))
+
+
 def segment_minmax(x: torch.Tensor, ids: torch.Tensor,
                    valid: torch.Tensor, num: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-id (min, max) of [N, D] rows with `valid & ids >= 0`; empty ids
     give +inf / -inf (replaces segment_minmax_bcast,
     segment_ops.py:203-236; min and max are exact in any order)."""
-    D = x.shape[-1]
-    seg = _bucket(ids, num, valid)[:, None].expand(-1, D)
-    lo = torch.full((num + 1, D), float("inf"), dtype=x.dtype,
-                    device=x.device).scatter_reduce(0, seg, x, "amin")
-    hi = torch.full((num + 1, D), float("-inf"), dtype=x.dtype,
-                    device=x.device).scatter_reduce(0, seg, x, "amax")
-    return lo[:num], hi[:num]
+    return (segment_min(x, ids, valid, num),
+            segment_max(x, ids, valid, num))

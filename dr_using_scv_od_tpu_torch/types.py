@@ -86,6 +86,23 @@ class FrameState(_Fields):
     point_route: torch.Tensor | None = None
 
 
+@dataclasses.dataclass(frozen=True)
+class Overflow(_Fields):
+    """What each static-shape cap dropped (scalar int32 counters)."""
+
+    points_dropped: torch.Tensor
+    clusters_dropped: torch.Tensor
+    patch_pts_dropped: torch.Tensor
+
+
+def empty_overflow(device: torch.device | str) -> Overflow:
+    """All three counters at zero on `device`."""
+    def zero():
+        return torch.zeros((), dtype=torch.int32, device=device)
+    return Overflow(points_dropped=zero(), clusters_dropped=zero(),
+                    patch_pts_dropped=zero())
+
+
 def stack(items):
     """Stack a list of equal-structure containers (dataclasses, NamedTuples
     or tensors) along a new leading axis."""

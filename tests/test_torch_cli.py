@@ -17,19 +17,18 @@ Tolerances:
     counter identical, `erasor_removed` included, and the map's point count
     within 0.1 %. This is the fast tier's 5e-4 hold of the engine through
     the entry point;
-  * slam on the synthetic 8-frame run (three windows), ATE and map: the
-    first two poses within 5e-4, the rest within 5e-2 m, the JAX package's
-    own spread on this run. The tiny profile's 4,096-point scans leave
-    scan-to-map GICP ~600 correspondences on near-singular voxel
-    covariances (the ill-conditioned case of tests/test_torch_engine.py,
-    here from the third pose on): the JAX CLI jitted and the same CLI under
-    `jax.disable_jit()` differ by 3.7e-3 m at the third pose and 3.4e-2 m
-    at the last, while the port agrees with the eager JAX run to 1.8e-4
-    (held at 5e-4 by the slow-tier test below; the eager run takes over
-    3 min whatever the number of frames). Counters are identical except
-    `erasor_removed`, which follows the poses (within 10 %; 1038 against
-    1052), as does the number of map points (within 1 %). A resumed run of
-    the port equals its uninterrupted run within 1e-5;
+  * slam on the synthetic 8-frame run (three windows) at `--extent 8`:
+    every pose and the ATE within 5e-4. At the tiny scene's default 14 m
+    extent the 4,096-point scans leave scan-to-map GICP ~600
+    correspondences on near-singular voxel covariances (the ill-conditioned
+    case of tests/test_torch_engine.py): the JAX CLI jitted and the same
+    CLI under `jax.disable_jit()` differ by 3.4e-2 m there. At 8 m they
+    differ by 1.1e-4 m, and the port by 1.1e-4 from the jitted run and
+    3e-5 from the eager one (held at 5e-4 by the slow-tier test below; the
+    eager run takes ~4 min). Counters are identical except
+    `erasor_removed`, which follows the last bits of the poses (within
+    10 %; 423 against 421), as does the number of map points (within 1 %).
+    A resumed run of the port equals its uninterrupted run within 1e-5;
   * `time.txt` holds wall-clock times: only its shape is compared.
 """
 
@@ -179,9 +178,10 @@ def test_odometry_matches(tmp_path):
 
 # ----------------------------------------------------------------- slam
 
-SLAM = ["slam", *TINY, "--frames", 8, "--window", 4]
+# --extent 8 packs the tiny scene's objects closer: at the default 14 m the
+# scan-to-map registrations are ill-conditioned (see the docstring)
+SLAM = ["slam", *TINY, "--frames", 8, "--window", 4, "--extent", 8]
 PORT_SLAM = SLAM[:1] + ["--device", "cpu"] + SLAM[1:]
-SPREAD_ATOL = 5e-2     # the JAX package's own jitted-vs-eager spread here
 RESUME_ATOL = 1e-5     # a resumed run against the uninterrupted one
 
 
@@ -197,23 +197,22 @@ def _summary(lines):
 
 def _same_summary(a, b, exact=False):
     """Equal counters; erasor_removed, which follows the poses, within
-    10 % (equal where `exact`); ATE within the spread."""
+    10 % (equal where `exact`); ATE within the pose tolerance."""
     (ca, ate_a), (cb, ate_b) = _summary(a), _summary(b)
     ea, eb = ca.pop("erasor_removed"), cb.pop("erasor_removed")
     assert ca == cb
     assert abs(ea - eb) <= (0 if exact else 0.10 * max(ea, eb))
     assert (ate_a is None) == (ate_b is None)
     if ate_a is not None:
-        assert abs(ate_a - ate_b) <= SPREAD_ATOL
+        assert abs(ate_a - ate_b) <= POSE_ATOL
     return ca
 
 
-def _same_outputs(ja, po, atol=SPREAD_ATOL, map_rtol=0.01):
+def _same_outputs(ja, po, map_rtol=0.01):
     tj = np.loadtxt(ja / "trajectory.txt")
     tp = np.loadtxt(po / "trajectory.txt")
     assert tj.shape == tp.shape
-    np.testing.assert_allclose(tp[:2], tj[:2], rtol=0, atol=POSE_ATOL)
-    np.testing.assert_allclose(tp, tj, rtol=0, atol=atol)
+    np.testing.assert_allclose(tp, tj, rtol=0, atol=POSE_ATOL)
     nj = len(io_kitti.read_pcd_xyzi(ja / "map_static.pcd"))
     n_port = len(io_kitti.read_pcd_xyzi(po / "map_static.pcd"))
     assert abs(nj - n_port) <= map_rtol * nj
@@ -298,7 +297,7 @@ def test_slam_streams_a_kitti_directory(tmp_path):
     assert _same_summary(jl, pl, exact=True)["frames"] == 5
     assert _summary(pl)[0]["erasor_removed"] > 0
     assert _summary(pl)[1] is None          # no ground-truth poses: no ATE
-    traj = _same_outputs(ja, po, atol=POSE_ATOL, map_rtol=1e-3)
+    traj = _same_outputs(ja, po, map_rtol=1e-3)
     # the scene moves 1 m a frame: the poses held above are not identities
     assert len(traj) == 5 and np.abs(traj[-1] - traj[0]).max() > 2.0
 
@@ -306,7 +305,7 @@ def test_slam_streams_a_kitti_directory(tmp_path):
 @pytest.mark.slow
 def test_slam_matches_the_eager_jax_run(tmp_path):
     """The JAX package run without jit, as the port runs: the trajectories
-    then agree within the pose tolerance (takes ~3 min)."""
+    then agree within the pose tolerance (takes ~4 min)."""
     import jax
     with jax.disable_jit():
         jl = _run(jcli.main, SLAM + ["--out", tmp_path / "jax"])

@@ -14,6 +14,11 @@ entry of T (the [30, N] sums reduce in another order on the card; the port
 and the JAX package differ by < 1e-6 on these clouds,
 tests/test_torch_gicp.py).
 
+Slice F's parts on the card: voxel_downsample's keep-mask equals the
+CPU's (points on leaf edges included), refine_by_intensity at 24 rounds
+equals kernel 1, and the stage profiler's segment_reduce split reads a
+device time.
+
 The SLAM engine's parts: two runs on the card are identical (no scatter of
 the engine path adds floats through atomics); `posegraph.optimize` on the
 card agrees with the CPU within 1e-4 where its CG converges, ERASOR's
@@ -30,13 +35,15 @@ import torch
 
 from dr_using_scv_od_tpu_torch import config, interop
 from dr_using_scv_od_tpu_torch.models import (engine, erasor, gicp, pipeline,
-                                              posegraph)
-from dr_using_scv_od_tpu_torch.ops import geometry
+                                              posegraph, segmentation)
+from dr_using_scv_od_tpu_torch.ops import geometry, quantize
 from dr_using_scv_od_tpu_torch.ops import cc_labels as cc
 from dr_using_scv_od_tpu_torch.ops import cluster_labels as cl
 from dr_using_scv_od_tpu_torch.ops import clustering
 from dr_using_scv_od_tpu_torch.ops import ri3_labels as ri3
 from dr_using_scv_od_tpu_torch.ops import tile_plan
+from dr_using_scv_od_tpu_torch.tools import profile_stages
+from dr_using_scv_od_tpu_torch.types import VoxelGrid
 from dr_using_scv_od_tpu_torch.utils import synthetic
 
 pytestmark = pytest.mark.cuda
@@ -406,3 +413,47 @@ def test_engine_window_on_card_matches_cpu(cuda_device):
     for name in ("n", "frames", "submap_fill", "track_counter",
                  "odo_fallbacks"):
         assert torch.equal(getattr(sa, name).cpu(), getattr(sc, name)), name
+
+
+@pytest.mark.parametrize("leaf", [0.08, 0.5])
+def test_voxel_downsample_on_card_matches_cpu(cuda_device, leaf):
+    """Points on leaf edges land in the same leaf on the card as on the
+    CPU (a division by a Python scalar on the card would not)."""
+    rng = np.random.default_rng(11)
+    edges = (rng.integers(-2000, 2000, size=(20000, 3)) * leaf)
+    xyz = np.concatenate([rng.uniform(-60, 60, size=(20000, 3)), edges]
+                         ).astype(np.float32)
+    valid = rng.random(len(xyz)) < 0.9
+    want = quantize.voxel_downsample(torch.from_numpy(xyz),
+                                     torch.from_numpy(valid), leaf)
+    got = quantize.voxel_downsample(torch.from_numpy(xyz).to(cuda_device),
+                                    torch.from_numpy(valid).to(cuda_device),
+                                    leaf)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_refine_by_intensity_on_card_reaches_kernel_1(cuda_device, seed):
+    """refine_by_intensity at 24 rounds from kernel 2's labels equals
+    kernel 1 on random tiny_test() grids."""
+    cfg = config.tiny_test()
+    cfg = dataclasses.replace(cfg, seg=dataclasses.replace(cfg.seg,
+                                                           iteration=24))
+    rng = np.random.default_rng(seed)
+    occ = torch.from_numpy(rng.random(cfg.grid.shape) < 0.15).to(cuda_device)
+    mean, var = (torch.from_numpy(rng.uniform(0, hi, cfg.grid.bin_num)
+                                  .astype(np.float32)).to(cuda_device)
+                 for hi in (6.0, 2.0))
+    sc = cfg.seg
+    grid = VoxelGrid(count=occ.reshape(-1).int(), intensity_mean=mean,
+                     intensity_var=var)
+    want = cl.cluster_labels(occ, mean, var, sc.search_c, sc.intensity_cov,
+                             sc.intensity_diff, sc.far_range_frac)
+    got = segmentation.refine_by_intensity(cc.cc_labels(occ), grid, cfg)
+    assert torch.equal(got, want)
+
+
+def test_profiler_split_reads_segment_reduce(cuda_device):
+    out = profile_stages.run(["segrest"], config.tiny_test(), cuda_device,
+                             reps=2, split=True)
+    assert out["segment_frame FULL segment_reduce"] > 0
