@@ -11,8 +11,9 @@ Phases (each raises on failure, so the script exits non-zero):
   3. run the main path, run_window at the full semantickitti() width
      (N = 131,072 points, G = 1,296,000 voxels, C = 512 clusters) on a
      5-frame synthetic window, counting the kernel's launches, and hold
-     PR > 99 / RR > 96 / F1 > 0.97 and the port's CPU result on the same
-     window;
+     PR > 99 / RR > 96 / F1 > 0.97; print how many entries of removed,
+     point_cluster, point_route and label_grids differ from the port's CPU
+     run of the same window, and hold them identical;
   4. hold cluster_labels against cluster_labels_reference (identical int32
      labels, in each of 10 launches) on every frame's grid and on
      adversarial grids;
@@ -47,9 +48,10 @@ Phases (each raises on failure, so the script exits non-zero):
      PR > 98 on the judged frames; resumes a checkpoint taken after
      window 3 on the card and holds it to the uninterrupted run
      (tests/test_engine.py:195-202); steps the first two windows on the
-     CPU from the card's state (window 2 through a card checkpoint) and
-     holds the card's windows to them; and times the steady windows
-     (ms/frame) and the parts of one steady window with CUDA events;
+     CPU from the card's state (window 2 through a card checkpoint), holds
+     the card's windows to them and prints how many entries of each
+     integer output differ; and times the steady windows (ms/frame) and
+     the parts of one steady window with CUDA events;
  11. hold cluster_labels and ri3_labels against their plain versions
      (identical labels in each of 10 launches) on full-size seam grids of
      the tile plan (ops/tile_plan.seam_grids: snakes through every tile
@@ -70,10 +72,16 @@ Phases (each raises on failure, so the script exits non-zero):
      from the first checkpoint (trajectory within 1e-5 of the
      uninterrupted run, cluster_labels launched on every frame); the
      host's time per scan on that path (decode, down-sample, pad, upload);
-     `times` on the time.txt that segdf wrote; and `features --frames 5`
+     `times` on the time.txt that segdf wrote; `features --frames 5`
      (its lines identical to those of the port's CPU run of the same window
-     in phase 3, cluster_labels launched once per frame). No phase draws a
-     figure: the machine may have no matplotlib;
+     in phase 3, cluster_labels launched once per frame); and, on segdf's
+     files, `evaluate` (voxel 0.2), `evaluate-map` (radii 0.15 / 0.1) and
+     `erasor` (the map of frames 0-3, frame 4, its position), each once on
+     the card and once with --device cpu: the lines, the TP/FN/TN/FP
+     counts, the coloured cloud and the static / dynamic split identical,
+     but for GT points whose exact nearest distance lies within 1e-5 m of
+     a radius (counted and printed). No phase draws a figure: the machine
+     may have no matplotlib;
  13. the parallel layer (dr_using_scv_od_tpu_torch/parallel) on a world of
      one rank under NCCL (a file store in a temporary directory, destroyed
      at the end): sharded_run_window at full width on the 6-frame window
@@ -99,7 +107,20 @@ Phases (each raises on failure, so the script exits non-zero):
      CPU; its card ms beside the host down-sample's ms); entry() (one
      kernel-1 launch, integer outputs identical to the CPU run of the same
      arguments); tools/drive_e2e.py (PR > 99 / RR > 96); the cascade
-     experiment's ours_window on 6 frames (card and CPU identical).
+     experiment's ours_window on 6 frames (card and CPU identical);
+ 15. tests/test_engine_scale.py's long gated trajectory
+     (tools/engine_scale.py): 96 scans, two laps of a 48-frame loop, fed
+     one at a time through SlamEngine.feed at full semantickitti() width
+     and at that file's tiny_cfg (N = 8,192), then finalize; each run
+     holds that file's floors (no keyframe dropped, frames >= 4 x
+     keyframes, keyframes spanning the run, >= 2 loop edges from >= 2
+     queries, the pose graph's ATE < 0.8 x the chained odometry's, submaps
+     topped up, < 1 % moving-car points in a map of > 10,000; the
+     absolute ATE < 7.0 m at tiny_cfg only, where it was set), counts
+     kernel 1's launches (one per frame of every window) and times the
+     steady windows (ms/frame, CUDA events) beside phase 10's; then the
+     budget case (the keyframe-budget error, 8 keyframes kept) and the
+     false-positive case (the poisoned candidate rejected by GICP).
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -140,7 +161,8 @@ from dr_using_scv_od_tpu_torch.parallel import (distributed_pgo, dryrun,
                                                tensor_parallel)
 from dr_using_scv_od_tpu_torch.parallel import mesh as pmesh
 from dr_using_scv_od_tpu_torch.tools import (cascade_experiment, drive_e2e,
-                                             kernel_times, profile_stages)
+                                             engine_scale, kernel_times,
+                                             profile_stages)
 from dr_using_scv_od_tpu_torch.utils import io_kitti, prefetch, synthetic
 
 F_CHECK = 5        # window judged against the accuracy floors
@@ -161,6 +183,8 @@ SLAM_CPU_WINDOWS = 2
 # summing GICP's accumulators in float64 instead moved that to 5.4e-4 m
 # (rotation 6e-6 in both).
 SLAM_T_ATOL = 1e-3
+SLAM_INT_OUTPUTS = ("removed", "n_dynamic", "odo_n_corr", "is_kf", "kf_slot",
+                    "loop_accepted", "loop_pair", "loop_ncorr")
 LOOP_FRAMES = 24
 SEAM_SHAPES = ((60, 72, 300), (61, 75, 301))
 CLI_SLAM_FRAMES = 12
@@ -176,6 +200,16 @@ STATS_ATOL = 1e-5
 DOWNSAMPLE_POINTS = 131072
 DOWNSAMPLE_LEAF = 0.08
 CASCADE_FRAMES = 6
+# phase 12's evaluation subcommands: the frame evaluated (a judged frame
+# with moving-car points), evaluate's voxel, evaluate-map's two radii, and
+# the band around a radius inside which a GT point's nearest distance
+# (float64, exact) may be judged otherwise on the card and the CPU: the
+# card's and the CPU's |a|^2 + |b|^2 - 2 a.b expansions round apart there
+EVAL_FRAME = 1
+EVAL_STRIDE = 8    # every 8th valid point of the frame is a GT point
+EVAL_VOXEL = 0.2
+EVAL_RADII = (0.15, 0.1)
+NEAR_RADIUS = 1e-5
 
 
 def _log(msg: str) -> None:
@@ -481,21 +515,18 @@ def slam_phase(dev, cfg):
         hi = lo + (W if k == 0 else W - 1)
         drive_slam(eng_c, cpu_scans, range(lo, hi))
         g, c = eng.outputs[k], eng_c.outputs[0]
-        n_valid = int(win["valid"][lo:hi].sum())
         drot = float(np.abs(g.poses[:, :3, :3] - c.poses[:, :3, :3]).max())
         dt = float(np.abs(g.poses[:, :3, 3] - c.poses[:, :3, 3]).max())
-        n_rm = int((g.removed != c.removed).sum())
+        ints = {name: int((getattr(g, name) != getattr(c, name)).sum())
+                for name in SLAM_INT_OUTPUTS}
         _log(f"slam window {k + 1}, card vs cpu from the same state: "
-             f"rotation {drot:.3e}, translation {dt:.3e} m, removed differs "
-             f"on {n_rm} points")
+             f"rotation {drot:.3e}, translation {dt:.3e} m; integer entries "
+             f"that differ {json.dumps(ints)}")
         _check(drot < POSE_ATOL and dt < SLAM_T_ATOL,
                f"window {k + 1}: card and cpu poses differ by >= "
                f"{POSE_ATOL} (rotation) or {SLAM_T_ATOL} m")
-        for name in ("is_kf", "kf_slot", "loop_accepted", "loop_pair"):
-            _check(np.array_equal(getattr(g, name), getattr(c, name)),
-                   f"window {k + 1}: card and cpu {name} differ")
-        _check(n_rm <= n_valid // 1000, f"window {k + 1}: removed differs "
-               "on > 0.1 % of the valid points")
+        _check(not any(ints.values()),
+               f"window {k + 1}: card and cpu integer outputs differ")
     for p in ckpt_dir.iterdir():
         p.unlink()
     ckpt_dir.rmdir()
@@ -545,6 +576,65 @@ def slam_phase(dev, cfg):
     split = {name: _time_ms(fn, TIME_REPS) for name, fn in parts.items()}
     _log(f"slam window {wb} (a loop landed) parts, ms: "
          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    return launches, ms_frame
+
+
+def scale_phase(dev, slam_ms):
+    """Phase 15: tests/test_engine_scale.py's long gated trajectory on the
+    card at full width and at that file's tiny_cfg, and its two short
+    cases. `slam_ms` is phase 10's ms/frame. Returns {width: cluster_labels
+    launches}."""
+    ec = engine_scale.long_run_config()
+    launches = {}
+    for width, cfg in (("full", config.semantickitti()),
+                       ("tiny", engine_scale.tiny_cfg())):
+        t0 = time.perf_counter()
+        win = engine_scale.long_run_window(cfg.shapes.max_points)
+        scans = tuple(torch.as_tensor(win[k], device=dev)
+                      for k in ("xyz", "intensity", "valid"))
+        for k in KERNELS:
+            k.launches = 0
+        eng = engine.SlamEngine(cfg, ec, device=dev)
+        _, times = drive_slam(eng, scans, range(engine_scale.F_LONG),
+                              timed=True)
+        eng.finalize(final_erasor=True)
+        torch.cuda.synchronize()
+        n = launches[width] = cl.cluster_labels.launches
+        in_windows = sum(o.poses.shape[0] for o in eng.outputs)
+        steady = [(ms, new) for w, ms, new in times if w > 1]
+        ms_frame = sum(ms for ms, _ in steady) / sum(n for _, n in steady)
+        fl = engine_scale.floors(eng, win)
+        ate_floor = engine_scale.ATE_FLOOR if width == "tiny" else None
+        missed = engine_scale.missed_floors(fl, ec, ate_floor)
+        _log(f"long gated run, {width} width (N = {cfg.shapes.max_points}): "
+             f"{json.dumps(fl)}; pose-graph ATE {fl['ate_pgo']:.5f} m "
+             f"(the tiny_cfg floor is {engine_scale.ATE_FLOOR} m), chained "
+             f"{fl['ate_chain']:.5f} m; {n} cluster_labels launches "
+             f"({in_windows} frames in {eng.windows} windows); "
+             f"{ms_frame:.3f} ms/frame over {len(steady)} steady windows "
+             f"(phase 10: {slam_ms:.3f}); {time.perf_counter() - t0:.1f} s; "
+             f"floors missed: {missed or 'none'}")
+        _check(not missed, f"long gated run, {width} width: floors missed "
+               f"{missed}")
+        _check(n == in_windows and n >= engine_scale.F_LONG,
+               f"long gated run, {width} width: {n} cluster_labels launches "
+               f"for {in_windows} frames in windows")
+
+    err, kf_frame = engine_scale.budget_case(dev)
+    _check(err is not None and "keyframe budget" in err,
+           f"the budget case raised {err!r}")
+    _check(int((kf_frame >= 0).sum()) == kf_frame.shape[0],
+           "the budget case lost a keyframe it had")
+    fp = engine_scale.false_positive_case(
+        dev, engine_scale.false_positive_noise())
+    _check(fp["scores"][0] > 0.95, "the poisoned candidate was not retrieved")
+    _check(not fp["accepted"][0] and bool((fp["pairs"][0] == -1).all())
+           and not bool((fp["new_edges"][:, 0] == 1).any()),
+           "GICP verification accepted the poisoned candidate")
+    _log(f"budget case: raised ({err.split(':')[0]}), {kf_frame.shape[0]} "
+         f"keyframes kept; false-positive case: top score "
+         f"{fp['scores'][0]:.4f} rejected, accepted {fp['accepted'].tolist()}"
+         f", loop edges {fp['n_loops_before']} -> {fp['n_loops']}")
     return launches
 
 
@@ -559,6 +649,153 @@ def _cli(argv) -> list:
         _log(f"  cli {argv[0]}| {line}")
     _check(rc == 0, f"cli {argv[0]} returned {rc}")
     return lines
+
+
+def _exact_nn(query: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """Nearest distance of each query point to `ref` in float64, by direct
+    differences (no expansion)."""
+    ref = ref.astype(np.float64)
+    return np.array([np.sqrt(((ref - q) ** 2).sum(1).min())
+                     for q in query.astype(np.float64)])
+
+
+def _hold_radius_tests(name, gt, refs, d2, radii):
+    """The per-point outcomes of a radius test on the card and the CPU:
+    `d2[device][k]` are the squared nearest distances of the GT points to
+    `refs[k]` on that device, tested against `radii[k]`. Every point that
+    takes another side of a radius on the card must have its exact nearest
+    distance within NEAR_RADIUS of that radius. Returns (points that
+    differ, GT points whose CPU distance lies within NEAR_RADIUS of a
+    radius, the largest card - CPU difference of a squared distance in m^2,
+    GT points whose CPU squared distance lies within that of a radius'
+    square)."""
+    n_diff = n_near = n_open = 0
+    gaps = []
+    for dg, dc in zip(d2["card"], d2["cpu"]):
+        fin = np.isfinite(dg) & np.isfinite(dc)
+        gaps.append(float(np.abs(dg[fin] - dc[fin]).max()) if fin.any()
+                    else 0.0)
+    gap = max(gaps)
+    for ref, dg, dc, r in zip(refs, d2["card"], d2["cpu"], radii):
+        n_near += int((np.abs(np.sqrt(dc.astype(np.float64)) - r)
+                       <= NEAR_RADIUS).sum())
+        n_open += int((np.abs(dc - r * r) <= gap).sum())
+        flip = (dg < r * r) != (dc < r * r)
+        if flip.any():
+            exact = _exact_nn(gt[flip], ref)
+            _check(bool((np.abs(exact - r) <= NEAR_RADIUS).all()),
+                   f"{name}: a point {float(np.abs(exact - r).max()):.3e} m "
+                   f"from the {r} m radius takes another side on the card")
+        n_diff += int(flip.sum())
+    return n_diff, n_near, gap, n_open
+
+
+def eval_phase(dev, root, segdf_out, win):
+    """Phase 12's `evaluate`, `evaluate-map` and `erasor` on the files that
+    segdf wrote: each through cli.main on the card (the default device) and
+    with --device cpu; the printed lines must be identical but for points
+    on a radius (see _hold_radius_tests)."""
+    from dr_using_scv_od_tpu_torch.eval import artifact
+    f = EVAL_FRAME
+    v = win["valid"][f]
+    gt = np.concatenate([win["xyz"][f][v], win["label"][f][v, None]
+                         .astype(np.float32)], axis=1)[::EVAL_STRIDE]
+    gt_path = root / "gt.pcd"
+    io_kitti.write_pcd_xyzi(gt_path, gt)
+    static = segdf_out / f"{f:06d}_static.pcd"
+    dynamic = segdf_out / f"{f:06d}_dynamic.pcd"
+    st_xyz = io_kitti.read_pcd_xyzi(static)[:, :3]
+    dy_xyz = io_kitti.read_pcd_xyzi(dynamic)[:, :3]
+
+    def both(argv, outs=()):
+        """(card lines, cpu lines): argv's `{dev}` output paths get the
+        device's name."""
+        lines = {}
+        for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            a = [str(x).replace("{dev}", tag) for x in argv]
+            t0 = time.perf_counter()
+            lines[tag] = _cli(a[:1] + extra + a[1:])
+            torch.cuda.synchronize()
+            _log(f"  cli {argv[0]} on the {tag}: "
+                 f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        return lines["card"], lines["cpu"]
+
+    def d2(ref):
+        if not len(ref):            # as four_outcome_map: no point is near
+            return {tag: np.full(len(gt), np.inf, np.float32)
+                    for tag in ("card", "cpu")}
+        return {tag: artifact.nn_distances(gt[:, :3], ref, device=d)
+                .cpu().numpy() for tag, d in (("card", dev), ("cpu", "cpu"))}
+
+    # ---- evaluate: the static map against the labelled frame
+    card, cpu = both(["evaluate", "--gt", gt_path, "--est", static,
+                      "--voxel", EVAL_VOXEL])
+    thr = EVAL_VOXEL * np.sqrt(3.0) / 2.0
+    ds, dd = d2(st_xyz), d2(dy_xyz)
+    n_diff, n_near, gap, n_open = _hold_radius_tests(
+        "evaluate", gt[:, :3], [st_xyz], {k: [ds[k]] for k in ds}, [thr])
+    _log(f"cli evaluate, card vs cpu: {n_diff} of {len(gt)} GT points "
+         f"judged otherwise, {n_near} within {NEAR_RADIUS} m of the "
+         f"{thr:.6f} m radius; squared distances up to {gap:.3e} m^2 apart, "
+         f"{n_open} points that close to the radius; lines "
+         f"{'identical' if card == cpu else 'differ'}")
+    _check(card == cpu or n_diff > 0, "cli evaluate: the lines differ on "
+           "the card and the CPU with no point judged otherwise")
+    _check(card[0].startswith("PR=") and len(card) >= 2,
+           f"cli evaluate printed {card!r}")
+
+    # ---- evaluate-map: the four outcomes at the two radii
+    out_map = root / "evaluate_{dev}.pcd"
+    card, cpu = both(["evaluate-map", "--gt", gt_path, "--static", static,
+                      "--dynamic", dynamic, "--radius", EVAL_RADII[0],
+                      "--radius2", EVAL_RADII[1], "--out", out_map])
+    refs = [st_xyz, st_xyz, dy_xyz, dy_xyz]
+    radii = [EVAL_RADII[0], EVAL_RADII[1], EVAL_RADII[0], EVAL_RADII[1]]
+    n_diff, n_near, gap, n_open = _hold_radius_tests(
+        "evaluate-map", gt[:, :3], refs,
+        {k: [ds[k], ds[k], dd[k], dd[k]] for k in ("card", "cpu")}, radii)
+    counts = [c.split(" -> ")[0] for c in (card[0], cpu[0])]
+    _log(f"cli evaluate-map, card vs cpu: {n_diff} (point, radius) tests "
+         f"differ, {n_near} within {NEAR_RADIUS} m of a radius; squared "
+         f"distances up to {gap:.3e} m^2 apart, {n_open} tests that close "
+         f"to a radius; counts {counts[0]!r} on the card, {counts[1]!r} on "
+         f"the CPU")
+    _check(counts[0] == counts[1] or n_diff > 0, "cli evaluate-map: the "
+           "TP/FN/TN/FP counts differ with no radius test judged otherwise")
+    pcds = [io_kitti.read_pcd_xyzi(str(out_map).replace("{dev}", t))
+            for t in ("card", "cpu")] if n_diff == 0 else []
+    _check(n_diff > 0 or np.array_equal(pcds[0], pcds[1]),
+           "cli evaluate-map: the coloured clouds differ")
+
+    # ---- erasor: the map of frames 0..3 (static and dynamic clouds) in the
+    # world frame against the whole of frame 4, seen from frame 4's position
+    def world(f, pts):
+        T = win["poses"][f]
+        return (pts[:, :3] @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+
+    m = np.concatenate([world(g, io_kitti.read_pcd_xyzi(
+        segdf_out / f"{g:06d}_{part}.pcd")) for g in range(4)
+        for part in ("static", "dynamic")])
+    io_kitti.write_pcd_xyzi(root / "map.pcd", np.concatenate(
+        [m, np.zeros((len(m), 1), np.float32)], axis=1))
+    v4 = win["valid"][4]
+    scan = world(4, win["xyz"][4][v4])
+    io_kitti.write_pcd_xyzi(root / "scan.pcd", np.concatenate(
+        [scan, np.zeros((len(scan), 1), np.float32)], axis=1))
+    ego = json.dumps([float(x) for x in win["poses"][4][:3, 3]])
+    card, cpu = both(["erasor", "--map", root / "map.pcd", "--scan",
+                      root / "scan.pcd", "--ego", ego,
+                      "--out-static", root / "erasor_s_{dev}.pcd",
+                      "--out-dynamic", root / "erasor_d_{dev}.pcd"])
+    _check(card == cpu, f"cli erasor printed {card!r} on the card, {cpu!r} "
+           f"on the CPU")
+    for part in ("s", "d"):
+        a, b = (io_kitti.read_pcd_xyzi(root / f"erasor_{part}_{t}.pcd")
+                for t in ("card", "cpu"))
+        _check(np.array_equal(a, b), f"cli erasor: the {part} clouds differ")
+    _check(" dynamic 0 " not in card[0], "cli erasor judged no map point "
+           "dynamic")
+    _log(f"cli erasor: card and cpu identical ({card[0]})")
 
 
 def cli_phase(dev, cfg, res, cpu_res, metrics_judged, scene):
@@ -622,6 +859,9 @@ def cli_phase(dev, cfg, res, cpu_res, metrics_judged, scene):
     _check(launches["features"] == F_CHECK, f"features launched "
            f"cluster_labels {launches['features']} times over {F_CHECK} "
            f"frames")
+
+    # ---- evaluate, evaluate-map and erasor on segdf's files, card and CPU
+    eval_phase(dev, root, out, win)
 
     # ---- odometry
     lines, _ = counted("odometry", ["odometry", "--frames", F_ODOM,
@@ -1050,12 +1290,15 @@ def main() -> int:
 
     ref = pipeline.run_window(*interop.window_from_numpy(win, "cpu"), cfg)
     n_valid = int(win["valid"].sum())
-    n_removed_diff = int((res.removed.cpu() != ref.removed).sum())
-    n_pc_diff = int((res.point_cluster.cpu() != ref.point_cluster).sum())
-    _log(f"cuda vs cpu port: removed differs on {n_removed_diff}, "
-         f"point_cluster on {n_pc_diff} of {n_valid} valid points")
-    _check(n_removed_diff <= n_valid // 1000,
-           "cuda and cpu runs of the port disagree on > 0.1 % of points")
+    diff = {name: int((getattr(a, name).cpu() != getattr(b, name)).sum())
+            for name, a, b in (
+                ("removed", res, ref), ("point_cluster", res, ref),
+                ("point_route", res.frames.state, ref.frames.state),
+                ("label_grids", res, ref))}
+    _log(f"cuda vs cpu port: entries that differ {json.dumps(diff)} "
+         f"({n_valid} valid points, {F_CHECK * G} label-grid voxels)")
+    _check(not any(diff.values()),
+           "the card's run_window differs from the port's CPU run")
 
     # ---- 4. kernel vs plain version, identical labels on every grid
     grids = res.frames.state.grid
@@ -1232,7 +1475,7 @@ def main() -> int:
     timed["cluster_labels"] = (kernel_ms, plain_ms)
 
     # ---- 10. the streaming SLAM engine at full width
-    slam_launches = slam_phase(dev, cfg)
+    slam_launches, slam_ms = slam_phase(dev, cfg)
 
     # ---- 11. the kernels on full-size seam grids of the tile plan
     n_seam = n_seam_cc = 0
@@ -1268,16 +1511,22 @@ def main() -> int:
     # ---- 14. the stage profiler's components, the stage parts and tools
     parts_launches = stage_parts_phase(dev, cfg, scene)
 
+    # ---- 15. the engine's long gated trajectory and its two guards
+    scale_launches = scale_phase(dev, slam_ms)
+
     # cluster_labels: launches of the engine's path (phase 10); phase 3
     # counted run_window's, phase 12 the entry points' and phase 13 the
     # sharded window's
     _log(f"cluster_labels launches: run_window {launches}, engine "
          f"{slam_launches}, entry points {cli_launches}, sharded window "
          f"{sharded_launches}, stage parts and tools "
-         f"{parts_launches['cluster_labels']}")
-    # each kernel's launches on the engine's path (kernel 1) or the stage
-    # profiler's (kernels 2 and 3, phase 7), plus phase 14's
-    launch_counts = {"cluster_labels": slam_launches,
+         f"{parts_launches['cluster_labels']}, long gated runs "
+         f"{scale_launches}")
+    # each kernel's launches on the engine's path (kernel 1: phase 10 and
+    # both runs of phase 15) or the stage profiler's (kernels 2 and 3,
+    # phase 7), plus phase 14's
+    launch_counts = {"cluster_labels": slam_launches
+                     + sum(scale_launches.values()),
                      "cc_labels": prof_launches["cc_labels"],
                      "ri3_labels": prof_launches["ri3_labels"]}
     for name, n in parts_launches.items():

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import plane as plane_ops
-from ..ops.geometry import sqrt_f32
+from ..ops.geometry import div_exact, sqrt_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,10 +55,10 @@ def _bin_index(xyz: torch.Tensor, valid: torch.Tensor, ego: torch.Tensor,
     r = sqrt_f32(rel[:, 0] ** 2 + rel[:, 1] ** 2)
     th = torch.atan2(rel[:, 1], rel[:, 0])
     th = torch.where(th < 0, th + 2 * math.pi, th)
-    ring = ((r - cfg.min_range)
-            / (cfg.max_range - cfg.min_range) * cfg.num_rings)
+    ring = (div_exact(r - cfg.min_range, cfg.max_range - cfg.min_range)
+            * cfg.num_rings)
     ring = torch.clamp(ring.to(torch.int32), 0, cfg.num_rings - 1)
-    sect = torch.clamp((th / (2 * math.pi) * cfg.num_sectors)
+    sect = torch.clamp((div_exact(th, 2 * math.pi) * cfg.num_sectors)
                        .to(torch.int32), 0, cfg.num_sectors - 1)
     ok = valid & (r > cfg.min_range) & (r < cfg.max_range)
     nb = cfg.num_rings * cfg.num_sectors

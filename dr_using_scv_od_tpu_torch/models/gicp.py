@@ -83,9 +83,10 @@ def _voxel_index_s(x, y, z, valid, cfg: GicpConfig):
     """Flat Cartesian voxel id (-1 outside the grid or invalid) and the
     in-grid mask, from scalar coordinate planes."""
     nxy, nz = _grid_dims(cfg)
-    ix = torch.floor((x + cfg.xy_extent) / cfg.voxel_size).to(torch.int32)
-    iy = torch.floor((y + cfg.xy_extent) / cfg.voxel_size).to(torch.int32)
-    iz = torch.floor((z - cfg.z_min) / cfg.voxel_size).to(torch.int32)
+    div = geometry.div_exact
+    ix = torch.floor(div(x + cfg.xy_extent, cfg.voxel_size)).to(torch.int32)
+    iy = torch.floor(div(y + cfg.xy_extent, cfg.voxel_size)).to(torch.int32)
+    iz = torch.floor(div(z - cfg.z_min, cfg.voxel_size)).to(torch.int32)
     ok = (valid & (ix >= 0) & (ix < nxy) & (iy >= 0) & (iy < nxy)
           & (iz >= 0) & (iz < nz))
     flat = (ix * nxy + iy) * nz + iz

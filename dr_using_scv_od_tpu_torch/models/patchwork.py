@@ -71,9 +71,10 @@ def _patch_id(xyz: torch.Tensor, valid: torch.Tensor,
         ring_size, sector_size = cfg.ring_sizes[zone], cfg.sector_sizes[zone]
         hi = mrs[zone + 1] if zone < 3 else cfg.max_range
         in_zone = (r > mrs[zone]) & (r <= hi)
-        ring = torch.clamp((r - mrs[zone]) / ring_size, max=nr - 1
-                           ).to(torch.int32)
-        sect = torch.clamp(theta / sector_size, max=ns - 1).to(torch.int32)
+        ring = torch.clamp(geometry.div_exact(r - mrs[zone], ring_size),
+                           max=nr - 1).to(torch.int32)
+        sect = torch.clamp(geometry.div_exact(theta, sector_size),
+                           max=ns - 1).to(torch.int32)
         ring = torch.clamp(ring, 0, nr - 1)
         sect = torch.clamp(sect, 0, ns - 1)
         pid = torch.where(in_zone, base + ring * ns + sect, pid)
@@ -102,8 +103,8 @@ def _z_histogram(xyz: torch.Tensor, pid: torch.Tensor, cfg: PatchworkConfig):
     in_hist = binned & ~((pid_c < n_zone0) & (z < margin))
     z_lo = -1.8 * cfg.sensor_height          # points below got erased
     z_hi = z_lo + 8.0                        # seeds live near the ground
-    zbin = torch.clamp((z - z_lo) / (z_hi - z_lo) * _NB, 0, _NB - 1
-                       ).to(torch.int32)
+    zbin = torch.clamp(geometry.div_exact(z - z_lo, z_hi - z_lo) * _NB, 0,
+                       _NB - 1).to(torch.int32)
     zoh = (zbin[:, None] == torch.arange(_NB, dtype=torch.int32,
                                          device=xyz.device)[None, :])
     zoh = (zoh & in_hist[:, None]).to(xyz.dtype)

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.geometry import sqrt_f32
+from ..ops.geometry import div_exact, sqrt_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,21 +30,29 @@ class DescriptorConfig:
     z_offset: float = 3.0
 
 
-def descriptor(xyz: torch.Tensor, valid: torch.Tensor,
+def cell_index(xyz: torch.Tensor, valid: torch.Tensor,
                cfg: DescriptorConfig) -> torch.Tensor:
-    """[N,3] sensor-frame scan -> [rings, sectors] max-height signature."""
+    """[N] int64 flat (ring, sector) cell of each point of the descriptor,
+    rings * sectors for a point out of range or invalid."""
     r = sqrt_f32(xyz[:, 0] ** 2 + xyz[:, 1] ** 2)
     th = torch.atan2(xyz[:, 1], xyz[:, 0])
     th = torch.where(th < 0, th + 2 * math.pi, th)
     ok = valid & (r > cfg.min_range) & (r < cfg.max_range)
-    ring = ((r - cfg.min_range) / (cfg.max_range - cfg.min_range)
+    ring = (div_exact(r - cfg.min_range, cfg.max_range - cfg.min_range)
             * cfg.rings).to(torch.int32)
     ring = torch.clamp(ring, 0, cfg.rings - 1)
-    sect = (th / (2 * math.pi) * cfg.sectors).to(torch.int32)
+    sect = (div_exact(th, 2 * math.pi) * cfg.sectors).to(torch.int32)
     sect = torch.clamp(sect, 0, cfg.sectors - 1)
     nc = cfg.rings * cfg.sectors
-    flat = torch.where(ok, ring * cfg.sectors + sect, nc).long()
-    z = torch.where(ok, xyz[:, 2] + cfg.z_offset, -math.inf)
+    return torch.where(ok, ring * cfg.sectors + sect, nc).long()
+
+
+def descriptor(xyz: torch.Tensor, valid: torch.Tensor,
+               cfg: DescriptorConfig) -> torch.Tensor:
+    """[N,3] sensor-frame scan -> [rings, sectors] max-height signature."""
+    nc = cfg.rings * cfg.sectors
+    flat = cell_index(xyz, valid, cfg)
+    z = torch.where(flat < nc, xyz[:, 2] + cfg.z_offset, -math.inf)
     d = torch.full((nc + 1,), -math.inf, dtype=xyz.dtype, device=xyz.device)
     d = d.scatter_reduce(0, flat, z, "amax")
     d = torch.where(torch.isfinite(d), d, 0.0)[:-1]

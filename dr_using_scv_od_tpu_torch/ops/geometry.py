@@ -21,6 +21,16 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(x.dtype)
 
 
+def div_exact(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, correctly rounded on every device. PyTorch's CUDA division by
+    a Python scalar (or a CPU scalar tensor) multiplies by the scalar's
+    reciprocal, which puts points on a bin edge into the other bin; a 0-dim
+    divisor of x's dtype on x's device takes the true division. On the CPU
+    this is `x / d` bit for bit. Every division by a scalar whose result is
+    floored, ceiled, truncated or cast to an integer goes through here."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def range2d(xyz: torch.Tensor) -> torch.Tensor:
     """2-D (x,y) range. Reference: pointDistance2d (utility.h:371-374)."""
     x, y = xyz[..., 0], xyz[..., 1]

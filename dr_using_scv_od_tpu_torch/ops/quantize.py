@@ -36,7 +36,7 @@ def quantize(xyz: torch.Tensor, valid: torch.Tensor, grid: GridConfig
     )
 
     def _idx(v, lo, res, n):
-        i = torch.ceil((v - lo) / res).to(torch.int32) - 1
+        i = torch.ceil(geometry.div_exact(v - lo, res)).to(torch.int32) - 1
         return torch.clamp(i, 0, n - 1)
 
     r_idx = _idx(dis, grid.min_dis, grid.range_res, grid.range_num)
@@ -135,11 +135,8 @@ def voxel_downsample(xyz: torch.Tensor, valid: torch.Tensor, leaf: float,
     by one int64 key and a stable sort, where the JAX function (no 64-bit
     integers) sorts three times."""
     dim = int(2.0 * bound / leaf)
-    # divide by a tensor: CUDA divides by a Python scalar as a product with
-    # its reciprocal, which rounds points on a leaf edge to the other leaf
-    leaf_t = torch.tensor(leaf, dtype=xyz.dtype, device=xyz.device)
-    ijk = torch.clamp(((xyz + bound) / leaf_t).to(torch.int32), 0,
-                      dim - 1).long()
+    ijk = torch.clamp(geometry.div_exact(xyz + bound, leaf)
+                      .to(torch.int32), 0, dim - 1).long()
     side = dim + 1
     key = (ijk[:, 0] * side + ijk[:, 1]) * side + ijk[:, 2]
     key = torch.where(valid, key, side ** 3)     # invalid points: no leaf

@@ -14,6 +14,18 @@ entry of T (the [30, N] sums reduce in another order on the card; the port
 and the JAX package differ by < 1e-6 on these clouds,
 tests/test_torch_gicp.py).
 
+Bin edges (tests/torch_bin_edges.py): points on every edge of the curved
+grid (sector, range, azimuth), of patchwork's rings, sectors and z
+histogram, of scan context's and ERASOR's rings and sectors and of the
+GICP voxels bin identically on the card and the CPU: a division by a
+Python scalar on the card multiplies by its reciprocal and would not.
+Points whose atan2 rounds otherwise on the card (a last-bit difference of
+the device's atan2, not of the binning) are left out and counted.
+
+The evaluation subcommands (`evaluate`, `evaluate-map`, `erasor`) print
+the same lines on the card as with `--device cpu`, with PyTorch's default
+float32 matmul precision (no TF32).
+
 Slice F's parts on the card: voxel_downsample's keep-mask equals the
 CPU's (points on leaf edges included), refine_by_intensity at 24 rounds
 equals kernel 1, and the stage profiler's segment_reduce split reads a
@@ -27,15 +39,21 @@ identical keyframe integers and `removed` on at most 0.1 % of the valid
 points.
 """
 
+import contextlib
 import dataclasses
+import io
+import json
 
 import numpy as np
 import pytest
 import torch
+import torch_bin_edges as edges
 
-from dr_using_scv_od_tpu_torch import config, interop
-from dr_using_scv_od_tpu_torch.models import (engine, erasor, gicp, pipeline,
-                                              posegraph, segmentation)
+from dr_using_scv_od_tpu_torch import cli, config, interop
+from dr_using_scv_od_tpu_torch.eval import artifact
+from dr_using_scv_od_tpu_torch.models import (engine, erasor, gicp, patchwork,
+                                              pipeline, posegraph,
+                                              scan_context, segmentation)
 from dr_using_scv_od_tpu_torch.ops import geometry, quantize
 from dr_using_scv_od_tpu_torch.ops import cc_labels as cc
 from dr_using_scv_od_tpu_torch.ops import cluster_labels as cl
@@ -44,7 +62,7 @@ from dr_using_scv_od_tpu_torch.ops import ri3_labels as ri3
 from dr_using_scv_od_tpu_torch.ops import tile_plan
 from dr_using_scv_od_tpu_torch.tools import profile_stages
 from dr_using_scv_od_tpu_torch.types import VoxelGrid
-from dr_using_scv_od_tpu_torch.utils import synthetic
+from dr_using_scv_od_tpu_torch.utils import io_kitti, synthetic
 
 pytestmark = pytest.mark.cuda
 
@@ -457,3 +475,211 @@ def test_profiler_split_reads_segment_reduce(cuda_device):
     out = profile_stages.run(["segrest"], config.tiny_test(), cuda_device,
                              reps=2, split=True)
     assert out["segment_frame FULL segment_reduce"] > 0
+
+
+# ---------------------------------------------------------------- bin edges
+
+def _edge_inputs(xyz, device, ego=(0.0, 0.0, 0.0)):
+    """(CPU (xyz, valid), card (xyz, valid)) of the points of `xyz` whose
+    angles round alike on both devices (edges.same_angles)."""
+    keep = edges.same_angles(xyz, device, ego)
+    print(f"{int(keep.sum())} of {len(keep)} edge points kept "
+          f"({int((~keep).sum())} with another atan2 on the card)")
+    assert keep.sum() > 0.4 * len(keep)
+    x = torch.from_numpy(xyz[keep])
+    v = torch.ones(len(x), dtype=torch.bool)
+    return (x, v), (x.to(device), v.to(device))
+
+
+def _same(got, want):
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("axis", ["sector", "range", "azimuth"])
+def test_quantize_on_bin_edges(cuda_device, axis):
+    grid = config.semantickitti().grid
+    cpu, card = _edge_inputs(edges.quantize_cloud(grid, axis), cuda_device)
+    if axis == "sector":
+        # the cloud holds points that a product with the reciprocal puts
+        # into the other sector on this card
+        v = geometry.polar_angle_deg(card[0]) - grid.min_angle
+        exact = torch.full((), grid.sector_res, device=cuda_device)
+        assert bool((torch.ceil(v / grid.sector_res)
+                     != torch.ceil(v / exact)).any())
+    _same(quantize.quantize(*card, grid), quantize.quantize(*cpu, grid))
+
+
+@pytest.mark.parametrize("axis", ["ring", "sector"])
+def test_patchwork_patch_ids_on_bin_edges(cuda_device, axis):
+    pw = config.semantickitti().patchwork
+    cpu, card = _edge_inputs(edges.patchwork_cloud(pw, axis), cuda_device)
+    want = patchwork._patch_id(*cpu, pw)
+    assert bool((want < pw.num_patches).all())
+    assert torch.equal(patchwork._patch_id(*card, pw).cpu(), want)
+
+
+def test_patchwork_z_histogram_on_bin_edges(cuda_device):
+    pw = config.semantickitti().patchwork
+    z_lo = -1.8 * pw.sensor_height
+    z = edges.around(z_lo + 8.0 / patchwork._NB
+                     * np.arange(1, patchwork._NB))
+    xyz = edges.polar([20.0], [0.7]).repeat(len(z), 0)
+    xyz[:, 2] = z
+    x = torch.from_numpy(xyz)
+    pid = patchwork._patch_id(x, torch.ones(len(x), dtype=torch.bool), pw)
+    want = patchwork._z_histogram(x, pid, pw)
+    got = patchwork._z_histogram(x.to(cuda_device), pid.to(cuda_device), pw)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("axis", ["ring", "sector"])
+def test_scan_context_on_bin_edges(cuda_device, axis):
+    dc = scan_context.DescriptorConfig()
+    cpu, card = _edge_inputs(edges.ring_sector_cloud(
+        dc.min_range, dc.max_range, dc.rings, dc.sectors, axis), cuda_device)
+    z = torch.arange(len(cpu[0]), dtype=torch.float32) * 1e-3
+    cpu[0][:, 2], card[0][:, 2] = z, z.to(cuda_device)
+    assert torch.equal(scan_context.cell_index(*card, dc).cpu(),
+                       scan_context.cell_index(*cpu, dc))
+    assert torch.equal(scan_context.descriptor(*card, dc).cpu(),
+                       scan_context.descriptor(*cpu, dc))
+
+
+@pytest.mark.parametrize("axis", ["ring", "sector"])
+def test_erasor_on_bin_edges(cuda_device, axis):
+    """The bins of points on ERASOR's edges around an ego position, and
+    clean_map on a map where those points stand as an object above a
+    noisy ground disc that the scan sees without them."""
+    ec = erasor.ErasorConfig()
+    ego = (3.0, -2.0, 0.0)
+    cpu, card = _edge_inputs(edges.ring_sector_cloud(
+        ec.min_range, ec.max_range, ec.num_rings, ec.num_sectors, axis, ego),
+        cuda_device, ego)
+    ego_c = torch.tensor(ego)
+    _same(erasor._bin_index(*card, ego_c.to(cuda_device), ec),
+          erasor._bin_index(*cpu, ego_c, ec))
+
+    rng = np.random.default_rng(2)
+
+    def ground(n=20000):
+        r = np.sqrt(rng.uniform(ec.min_range ** 2, ec.max_range ** 2, n))
+        th = rng.uniform(0, 2 * np.pi, n)
+        return torch.from_numpy(np.stack([
+            r * np.cos(th) + ego[0], r * np.sin(th) + ego[1],
+            rng.normal(scale=0.02, size=n) - 1.7], 1).astype(np.float32))
+
+    obj = cpu[0].clone()
+    obj[:, 2] = torch.arange(len(obj), dtype=torch.float32) % 7 * 0.25 - 1.2
+    map_xyz, scan_xyz = torch.cat([ground(), obj]), ground()
+    mv, sv = (torch.ones(len(t), dtype=torch.bool) for t in (map_xyz,
+                                                              scan_xyz))
+    want = erasor.clean_map(map_xyz, mv, scan_xyz, sv, ego_c, ec)
+    got = erasor.clean_map(*(t.to(cuda_device) for t in (map_xyz, mv,
+                                                          scan_xyz, sv,
+                                                          ego_c)), ec)
+    assert bool(want.dynamic[-len(obj):].any())
+    _same(got, want)
+
+
+def test_gicp_voxels_on_bin_edges(cuda_device):
+    gc = config.semantickitti().gicp
+    x = torch.from_numpy(edges.voxel_cloud(gc))
+    v = torch.ones(len(x), dtype=torch.bool)
+    _same(gicp.voxel_index(x.to(cuda_device), v.to(cuda_device), gc),
+          gicp.voxel_index(x, v, gc))
+
+
+# ------------------------------------------ the evaluation subcommands
+
+
+def _cli_lines(argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main([str(a) for a in argv]) == 0
+    return buf.getvalue().splitlines()
+
+
+def _card_and_cpu(argv):
+    """The lines of a subcommand with the default device (the card) and
+    with --device cpu; `{dev}` in an argument becomes the device's name."""
+    out = []
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        a = [str(x).replace("{dev}", tag) for x in argv]
+        out.append(_cli_lines(a[:1] + extra + a[1:]))
+    return out
+
+
+def _labelled_frame(tmp_path):
+    """A labelled GT cloud (static 40, moving car 252) and estimated static
+    and dynamic clouds: some points kept, some moved by 3 cm, some lost."""
+    rng = np.random.default_rng(3)
+    gt = (rng.normal(size=(1500, 4)) * 10).astype(np.float32)
+    gt[:, 3] = 40
+    gt[1200:, 3] = 252
+    moved = gt.copy()
+    moved[:, :3] += rng.normal(scale=0.03, size=(1500, 3))
+    paths = [tmp_path / n for n in ("gt.pcd", "s.pcd", "d.pcd")]
+    for path, pts in zip(paths, (gt, np.concatenate([moved[:1000],
+                                                     moved[1200:1260]]),
+                                 np.concatenate([moved[1000:1100],
+                                                 moved[1260:]]))):
+        io_kitti.write_pcd_xyzi(path, pts)
+    return gt, paths
+
+
+def test_float32_matmul_is_the_default():
+    """`cli evaluate` computes nearest distances with a matmul: PyTorch's
+    default keeps its products in float32 (no TF32)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_cli_evaluate_on_card_matches_cpu(cuda_device, tmp_path):
+    gt, (g, s, _) = _labelled_frame(tmp_path)
+    card, cpu = _card_and_cpu(["evaluate", "--gt", g, "--est", s])
+    assert card == cpu and card[0].startswith("PR=")
+    d = artifact.nn_distances(gt[:, :3], io_kitti.read_pcd_xyzi(s)[:, :3],
+                              device=cuda_device)
+    assert d.device.type == "cuda"
+
+
+def test_cli_evaluate_map_on_card_matches_cpu(cuda_device, tmp_path):
+    _, (g, s, d) = _labelled_frame(tmp_path)
+    out = tmp_path / "eval_{dev}.pcd"
+    card, cpu = _card_and_cpu(["evaluate-map", "--gt", g, "--static", s,
+                               "--dynamic", d, "--out", out])
+    assert card[0].split(" -> ")[0] == cpu[0].split(" -> ")[0]
+    assert "TP=0 " not in card[0]
+    a, b = (io_kitti.read_pcd_xyzi(str(out).replace("{dev}", t))
+            for t in ("card", "cpu"))
+    np.testing.assert_array_equal(a, b)
+
+
+def test_cli_erasor_on_card_matches_cpu(cuda_device, tmp_path):
+    rng = np.random.default_rng(5)
+
+    def cloud(with_car):
+        r = np.sqrt(rng.uniform(4.0, 40.0 ** 2, 4000))
+        th = rng.uniform(0, 2 * np.pi, 4000)
+        parts = [np.stack([r * np.cos(th), r * np.sin(th),
+                           rng.normal(scale=0.02, size=4000) - 1.7], 1)]
+        if with_car:
+            parts.append(np.stack([rng.uniform(8, 12.2, 600),
+                                   rng.uniform(-0.9, 0.9, 600),
+                                   rng.uniform(-1.7, -0.2, 600)], 1))
+        xyz = np.concatenate(parts).astype(np.float32)
+        return np.concatenate([xyz, np.zeros((len(xyz), 1), np.float32)], 1)
+
+    io_kitti.write_pcd_xyzi(tmp_path / "map.pcd", cloud(True))
+    io_kitti.write_pcd_xyzi(tmp_path / "scan.pcd", cloud(False))
+    card, cpu = _card_and_cpu([
+        "erasor", "--map", tmp_path / "map.pcd", "--scan",
+        tmp_path / "scan.pcd", "--ego", json.dumps([0.0, 0.0, 0.0]),
+        "--out-static", tmp_path / "s_{dev}.pcd",
+        "--out-dynamic", tmp_path / "d_{dev}.pcd"])
+    assert card == cpu and " dynamic 0 " not in card[0]
+    for part in ("s", "d"):
+        np.testing.assert_array_equal(
+            io_kitti.read_pcd_xyzi(tmp_path / f"{part}_card.pcd"),
+            io_kitti.read_pcd_xyzi(tmp_path / f"{part}_cpu.pcd"))
