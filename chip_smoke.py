@@ -121,6 +121,17 @@ Phases (each raises on failure, so the script exits non-zero):
      steady windows (ms/frame, CUDA events) beside phase 10's; then the
      budget case (the keyframe-budget error, 8 keyframes kept) and the
      false-positive case (the poisoned candidate rejected by GICP).
+ 16. the three stress scenes of tests/test_hard_scenes.py (wall-parked
+     cars F = 4, a car that stops F = 6, both with tree clutter F = 6)
+     through run_window at full width on the card and on the CPU: print
+     PR / RR and how many entries of removed, point_cluster, point_route
+     and label_grids differ, and hold them identical; then the port's
+     benchmark, `python -m dr_using_scv_od_tpu_torch.tools.bench`, in a
+     subprocess at its defaults (bench.py's sizes) with a bounded wait:
+     exit 0, one stdout line with its five keys, `device` this card,
+     vs_baseline = BASELINE_MS / value to the rounding, every section's
+     stderr lines (printed here), and its per-section cluster_labels
+     launches equal to what its calls imply (`bench_launches`).
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -160,9 +171,9 @@ from dr_using_scv_od_tpu_torch.parallel import (distributed_pgo, dryrun,
                                                schur_pgo, sharded_pipeline,
                                                tensor_parallel)
 from dr_using_scv_od_tpu_torch.parallel import mesh as pmesh
-from dr_using_scv_od_tpu_torch.tools import (cascade_experiment, drive_e2e,
-                                             engine_scale, kernel_times,
-                                             profile_stages)
+from dr_using_scv_od_tpu_torch.tools import (bench, cascade_experiment,
+                                             drive_e2e, engine_scale,
+                                             kernel_times, profile_stages)
 from dr_using_scv_od_tpu_torch.utils import io_kitti, prefetch, synthetic
 
 F_CHECK = 5        # window judged against the accuracy floors
@@ -185,7 +196,7 @@ SLAM_CPU_WINDOWS = 2
 SLAM_T_ATOL = 1e-3
 SLAM_INT_OUTPUTS = ("removed", "n_dynamic", "odo_n_corr", "is_kf", "kf_slot",
                     "loop_accepted", "loop_pair", "loop_ncorr")
-LOOP_FRAMES = 24
+LOOP_FRAMES = bench.slam_spec().loop_frames
 SEAM_SHAPES = ((60, 72, 300), (61, 75, 301))
 CLI_SLAM_FRAMES = 12
 CLI_CKPT_EVERY = 6
@@ -210,6 +221,16 @@ EVAL_STRIDE = 8    # every 8th valid point of the frame is a GT point
 EVAL_VOXEL = 0.2
 EVAL_RADII = (0.15, 0.1)
 NEAR_RADIUS = 1e-5
+# phase 16: the scenes of tests/test_hard_scenes.py (SceneSpec fields, F),
+# the bench's time limit and the prefixes of its stderr sections
+HARD_SCENES = {
+    "wall": (dict(wall_parked_cars=2), 4),
+    "stop": (dict(stop_frame=2), 6),
+    "clutter": (dict(wall_parked_cars=2, stop_frame=2, n_trees=12), 6),
+}
+BENCH_TIMEOUT = 600
+BENCH_PREFIXES = ("[device]", "[stages ms/frame]", "[roofline]", "[trace]",
+                  "[odometry]", "[slam]", "[engine-trace]", "[kernels]")
 
 
 def _log(msg: str) -> None:
@@ -353,25 +374,21 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def slam_config() -> engine.EngineConfig:
-    """bench.py's [slam] EngineConfig (bench.py:309-329): every scan of the
-    loop scene keyframes (kf_dist 4 m < its 4.7 m step) through the gated
-    path, periodic ERASOR."""
-    return engine.EngineConfig(
-        window=6, max_keyframes=128, submap_points=4096, local_map_kf=3,
-        kf_dist=4.0, loop_min_gap=8, loop_min_score=0.84, max_loop_edges=32,
-        erasor=dataclasses.replace(engine.erasor_mod.ErasorConfig(),
-                                   max_range=45.0, max_pts_per_bin=256),
-        erasor_every=4)
+def card_vs_cpu(res, ref) -> dict:
+    """How many entries of removed, point_cluster, point_route and
+    label_grids differ between two WindowResults (the card's, the CPU's)."""
+    return {name: int((getattr(a, name).cpu() != getattr(b, name)).sum())
+            for name, a, b in (
+                ("removed", res, ref), ("point_cluster", res, ref),
+                ("point_route", res.frames.state, ref.frames.state),
+                ("label_grids", res, ref))}
 
 
 def slam_window(n_frames: int, n_points: int):
-    """bench.py's [slam] scene: a 24-frame circle of radius 18 m, two
-    moving cars."""
-    spec = synthetic.SceneSpec(trajectory="loop", loop_frames=LOOP_FRAMES,
-                               loop_radius=18.0, n_moving_cars=2)
-    return synthetic.render_window(synthetic.make_scene(spec), n_frames,
-                                   n_points)
+    """bench.py's [slam] scene (tools/bench.slam_spec): a 24-frame circle
+    of radius 18 m, two moving cars."""
+    return synthetic.render_window(synthetic.make_scene(bench.slam_spec()),
+                                   n_frames, n_points)
 
 
 def drive_slam(eng, scans, frames, on_window=None, timed=False):
@@ -423,7 +440,7 @@ def slam_accuracy(win, removed, cfg):
 
 def slam_phase(dev, cfg):
     """Phase 10. Returns the cluster_labels launches of the engine run."""
-    ec = slam_config()
+    ec = bench.slam_config()
     N = cfg.shapes.max_points
     W = ec.window
     win = slam_window(SLAM_FRAMES, N)
@@ -950,7 +967,7 @@ def cli_phase(dev, cfg, res, cpu_res, metrics_judged, scene):
     # (decode, down-sample, pad, upload), then the decode and the
     # down-sample alone
     args = argparse.Namespace(data=str(data), labels=None, start=0, end=0)
-    eng = engine.SlamEngine(cfg, slam_config(), device=dev)
+    eng = engine.SlamEngine(cfg, bench.slam_config(), device=dev)
     scans, n = cli.stream_scans(args, cfg)
     t0 = time.perf_counter()
     for scan in scans:
@@ -1233,6 +1250,106 @@ def stage_parts_phase(dev, cfg, scene):
     return launches
 
 
+def hard_scenes_phase(dev, cfg) -> int:
+    """Phase 16, first part: the three stress scenes of
+    tests/test_hard_scenes.py through run_window at full width on the card
+    and on the CPU. Returns the cluster_labels launches on the card."""
+    launches = 0
+    for name, (spec, F) in HARD_SCENES.items():
+        win = synthetic.render_window(
+            synthetic.make_scene(synthetic.SceneSpec(**spec)), F,
+            cfg.shapes.max_points)
+        for k in KERNELS:
+            k.launches = 0
+        res = pipeline.run_window(*interop.window_from_numpy(win, dev), cfg)
+        torch.cuda.synchronize()
+        n = cl.cluster_labels.launches
+        launches += n
+        ref = pipeline.run_window(*interop.window_from_numpy(win, "cpu"),
+                                  cfg)
+        diff = card_vs_cpu(res, ref)
+        m = metrics.removal_metrics(
+            win["label"][:F - 1], res.removed[:F - 1].cpu().numpy(),
+            win["valid"][:F - 1])
+        _log(f"hard scene {name} (F = {F}): PR {m.pr:.4f} RR {m.rr:.4f}, "
+             f"{int(res.removed.sum())} points removed, {n} cluster_labels "
+             f"launches; card vs cpu port: entries that differ "
+             f"{json.dumps(diff)} ({int(win['valid'].sum())} valid points)")
+        _check(n == F, f"hard scene {name}: {n} cluster_labels launches for "
+               f"{F} frames")
+        _check(not any(diff.values()), f"hard scene {name}: the card's "
+               f"run_window differs from the port's CPU run")
+    return launches
+
+
+def bench_launches(reps: int, frames: int, slam_frames: int,
+                   window: int) -> dict:
+    """The cluster_labels launches that each section of tools/bench.py makes
+    at these arguments: one a frame that run_window, segment_frame or the
+    engine processes."""
+    n_more, rest = divmod(slam_frames - window, window - 1)
+    return {
+        "headline": (reps + 1) * frames,    # run_window: warm-up + reps
+        # segment_frame and process_window build the stages' inputs, then
+        # the segment stage's warm-up + reps
+        "stages": 1 + frames + reps + 1,
+        "roofline": reps + 1,               # graph_ms: warm-up + captured
+        "trace": reps + 1,                  # the segment stage, profiled
+        "odometry": 0,
+        # every window runs its overlap frame again; a short last window
+        # runs what is left at finalize()
+        "slam": window * (1 + n_more) + (rest + 1 if rest else 0),
+        "engine-trace": 2 * window,         # process_window: warm-up + one
+    }
+
+
+def bench_phase() -> int:
+    """Phase 16, second part: tools/bench.py in a subprocess at its
+    defaults. Returns its cluster_labels launches."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dr_using_scv_od_tpu_torch.tools.bench"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT)
+    for line in proc.stderr.splitlines():
+        _log(f"bench stderr: {line}")
+    for line in proc.stdout.splitlines():
+        _log(f"bench stdout: {line}")
+    _check(proc.returncode == 0, f"tools/bench.py exited {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    _check(len(lines) == 1, f"tools/bench.py printed {len(lines)} stdout "
+           f"lines, not one")
+    out = json.loads(lines[0])
+    _check(set(out) == {"metric", "value", "unit", "vs_baseline", "device"},
+           f"bench keys {sorted(out)}")
+    _check(out["metric"] == "dynamic_removal_ms_per_frame"
+           and out["unit"] == "ms/frame" and out["value"] > 0,
+           f"bench line {out}")
+    _check(out["device"] == torch.cuda.get_device_name(0),
+           f"bench device {out['device']!r}")
+    # both numbers are rounded to 3 decimals
+    slack = 5e-4 + bench.BASELINE_MS * 5e-4 / (out["value"] - 5e-4) ** 2
+    _check(abs(out["vs_baseline"] - bench.BASELINE_MS / out["value"])
+           <= slack, f"vs_baseline {out['vs_baseline']} is not "
+           f"{bench.BASELINE_MS} / {out['value']}")
+    err = proc.stderr.splitlines()
+    for prefix in BENCH_PREFIXES:
+        _check(any(line.startswith(prefix) for line in err),
+               f"tools/bench.py printed no {prefix} line")
+    _check(not any("not measured (cpu)" in line for line in err),
+           "tools/bench.py printed a CPU line on the card")
+    kline = next(line for line in err if line.startswith("[kernels]"))
+    counts = json.loads(kline[kline.index("{"):])
+    want = bench_launches(bench.REPS, bench.F, bench.SLAM_FRAMES,
+                          bench.slam_config().window)
+    _log(f"bench: {time.perf_counter() - t0:.1f} s; cluster_labels launches "
+         f"{json.dumps(counts)}, its calls imply {json.dumps(want)}")
+    _check(counts == want, "tools/bench.py's kernel launches differ from "
+           "what its calls imply")
+    return sum(counts.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1290,11 +1407,7 @@ def main() -> int:
 
     ref = pipeline.run_window(*interop.window_from_numpy(win, "cpu"), cfg)
     n_valid = int(win["valid"].sum())
-    diff = {name: int((getattr(a, name).cpu() != getattr(b, name)).sum())
-            for name, a, b in (
-                ("removed", res, ref), ("point_cluster", res, ref),
-                ("point_route", res.frames.state, ref.frames.state),
-                ("label_grids", res, ref))}
+    diff = card_vs_cpu(res, ref)
     _log(f"cuda vs cpu port: entries that differ {json.dumps(diff)} "
          f"({n_valid} valid points, {F_CHECK * G} label-grid voxels)")
     _check(not any(diff.values()),
@@ -1514,6 +1627,10 @@ def main() -> int:
     # ---- 15. the engine's long gated trajectory and its two guards
     scale_launches = scale_phase(dev, slam_ms)
 
+    # ---- 16. the stress scenes, card against CPU; the port's bench
+    hard_launches = hard_scenes_phase(dev, cfg)
+    bench_total = bench_phase()
+
     # cluster_labels: launches of the engine's path (phase 10); phase 3
     # counted run_window's, phase 12 the entry points' and phase 13 the
     # sharded window's
@@ -1521,12 +1638,13 @@ def main() -> int:
          f"{slam_launches}, entry points {cli_launches}, sharded window "
          f"{sharded_launches}, stage parts and tools "
          f"{parts_launches['cluster_labels']}, long gated runs "
-         f"{scale_launches}")
-    # each kernel's launches on the engine's path (kernel 1: phase 10 and
-    # both runs of phase 15) or the stage profiler's (kernels 2 and 3,
-    # phase 7), plus phase 14's
+         f"{scale_launches}, stress scenes {hard_launches}, bench "
+         f"{bench_total}")
+    # each kernel's launches on the engine's path (kernel 1: phase 10,
+    # both runs of phase 15 and phase 16's bench) or the stage profiler's
+    # (kernels 2 and 3, phase 7), plus phase 14's
     launch_counts = {"cluster_labels": slam_launches
-                     + sum(scale_launches.values()),
+                     + sum(scale_launches.values()) + bench_total,
                      "cc_labels": prof_launches["cc_labels"],
                      "ri3_labels": prof_launches["ri3_labels"]}
     for name, n in parts_launches.items():

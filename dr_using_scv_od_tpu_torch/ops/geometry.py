@@ -12,6 +12,7 @@ import math
 import torch
 
 RAD2DEG = 180.0 / math.pi
+DEG2RAD = math.pi / 180.0
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,6 @@ Indices are clipped into [0, n-1], as in the JAX package (the reference's
 
 from __future__ import annotations
 
-import math
 from typing import Tuple
 
 import torch
@@ -113,11 +112,11 @@ def voxel_centers(grid: GridConfig, device: torch.device | str
         i = torch.arange(n, dtype=torch.float32, device=device)
         return (i + 0.5) * res + lo
 
-    deg2rad = math.pi / 180.0
     rc = centers(R, grid.range_res, grid.min_dis)[None, :, None]
-    sc = (centers(S, grid.sector_res, grid.min_angle) * deg2rad)[None, None]
+    sc = (centers(S, grid.sector_res, grid.min_angle)
+          * geometry.DEG2RAD)[None, None]
     ac = (centers(A, grid.azimuth_res, grid.min_azimuth)
-          * deg2rad)[:, None, None]
+          * geometry.DEG2RAD)[:, None, None]
     x = (rc * torch.cos(sc)).expand(A, R, S)
     y = (rc * torch.sin(sc)).expand(A, R, S)
     z = (rc * torch.tan(ac)).expand(A, R, S)

@@ -79,7 +79,8 @@ def test_guard_covers_the_entry_points_and_io_modules():
             "parallel/pipeline_parallel.py", "parallel/distributed_pgo.py",
             "parallel/schur_pgo.py", "parallel/scaling.py",
             "parallel/dryrun.py", "entry.py", "tools/profile_stages.py",
-            "tools/drive_e2e.py", "tools/cascade_experiment.py"} <= guarded
+            "tools/drive_e2e.py", "tools/cascade_experiment.py",
+            "tools/bench.py"} <= guarded
 
 
 def test_every_jax_module_has_its_port():
@@ -118,17 +119,25 @@ EXEMPT = {
 
 
 def _public_names(path: pathlib.Path) -> set:
-    """Top-level functions and classes of a module whose names do not
-    start with an underscore."""
-    return {node.name for node in ast.parse(path.read_text()).body
-            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
-                                 ast.ClassDef))
-            and not node.name.startswith("_")}
+    """Top-level functions, classes and assigned names (constants such as
+    bench.py's REPS) of a module whose names do not start with an
+    underscore."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            names |= {t.id for t in targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
 
 
 def _counterparts(root: pathlib.Path, port: pathlib.Path):
     """(JAX file, [port files]) for every module of the JAX package but the
-    Pallas kernels, __graft_entry__.py and each of tools/*.py."""
+    Pallas kernels, __graft_entry__.py, each of tools/*.py and bench.py
+    (whose port is tools/bench.py)."""
     jax_pkg = root / "dr_using_scv_od_tpu"
     pairs = [(p, [port / p.relative_to(jax_pkg)])
              for p in sorted(jax_pkg.rglob("*.py")) if "pallas" not in p.parts]
@@ -136,6 +145,8 @@ def _counterparts(root: pathlib.Path, port: pathlib.Path):
                   [port / "entry.py", port / "parallel" / "dryrun.py"]))
     pairs += [(p, [port / "tools" / p.name])
               for p in sorted((root / "tools").glob("*.py"))]
+    pairs += [(p, [port / "tools" / "bench.py"])
+              for p in [root / "bench.py"] if p.exists()]
     return pairs
 
 
@@ -183,6 +194,26 @@ def test_the_name_guard_catches_an_unported_name(tmp_path):
     found = {p.name: _unported(p, q, {"waived": "reason"})
              for p, q in _counterparts(root, port)}
     assert found == {"a.py": ["Gone", "lost"], "__graft_entry__.py": []}
+
+
+def test_the_name_guard_holds_bench_and_constants(tmp_path):
+    """bench.py's public names (REPS, BASELINE_MS, main) are among those the
+    guard holds against tools/bench.py; a public constant missing from the
+    port fails the guard, a private one does not."""
+    jax_file, port_files = next(
+        (j, p) for j, p in _counterparts(ROOT, PORT) if j.name == "bench.py")
+    assert port_files == [PORT / "tools" / "bench.py"]
+    assert {"REPS", "BASELINE_MS", "main"} <= _public_names(jax_file)
+    root, port = tmp_path / "repo", tmp_path / "repo" / "port"
+    for d in (root / "dr_using_scv_od_tpu", root / "tools", port / "tools"):
+        d.mkdir(parents=True)
+    (root / "__graft_entry__.py").write_text("")
+    (root / "bench.py").write_text(
+        "REPS = 12\nBASELINE_MS = 213.67\n_PEAKS = {}\ndef main(): pass\n")
+    (port / "tools" / "bench.py").write_text(
+        "REPS = 12\ndef main(): pass\n")
+    found = {p.name: _unported(p, q, {}) for p, q in _counterparts(root, port)}
+    assert found == {"__graft_entry__.py": [], "bench.py": ["BASELINE_MS"]}
 
 
 def test_worker_of_the_parallel_tests_loads_no_jax():
