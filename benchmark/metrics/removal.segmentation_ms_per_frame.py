@@ -1,0 +1,10 @@
+"""removal.segmentation_ms_per_frame: ms per frame of the synchronised
+program spans "segmentation" around segmentation.segment_frame (voxel
+sums, kernel 1, labels; models/segmentation.py) in the removal windows of
+the pass of synchronised spans (program_record.span_ms_per_frame)."""
+
+from benchmark import program_record
+
+
+def read(ctx):
+    return program_record.span_ms_per_frame(ctx, "segmentation")

@@ -46,6 +46,7 @@ from ..config import PipelineConfig
 from ..ops import geometry
 from ..types import ClusterTable, _Fields, take
 from ..utils import checkpoint as ckpt
+from ..utils import timing
 from . import erasor as erasor_mod
 from . import gicp, pipeline, posegraph, scan_context
 
@@ -565,8 +566,9 @@ def process_window(state: EngineState, xyz, intensity, valid,
         + torch.arange(W, dtype=I32, device=device)
 
     # ---- 1. odometry
-    A_T, n_corr, rmse, pose_A, n_fallback = _window_odometry(
-        state, xyz, valid, first, ec, cfg)
+    with timing.span("odometry"):
+        A_T, n_corr, rmse, pose_A, n_fallback = _window_odometry(
+            state, xyz, valid, first, ec, cfg)
 
     # fault injection: a constant se(3) bias on every relative transform
     if any(b != 0.0 for b in ec.drift_bias):
@@ -623,14 +625,16 @@ def process_window(state: EngineState, xyz, intensity, valid,
                           submap_overflow=state.submap_overflow + ovf)
 
     # ---- 5. loop closure (top-k distinct candidates)
-    (li, lj, lT, lw, nl), accepted, pairs, loop_diag = _window_loops(
-        state, xyz, valid, descs, slots, is_kf, first, ec, cfg)
+    with timing.span("loops"):
+        (li, lj, lT, lw, nl), accepted, pairs, loop_diag = _window_loops(
+            state, xyz, valid, descs, slots, is_kf, first, ec, cfg)
     state = state.replace(loop_i=li, loop_j=lj, loop_T=lT, loop_w=lw,
                           n_loops=nl)
 
     # ---- 6. pose graph (only when a loop landed this window)
     if bool(accepted.any()):
-        poses, pgo_err = _run_pgo(state, state.n, ec)
+        with timing.span("pgo"):
+            poses, pgo_err = _run_pgo(state, state.n, ec)
         state = state.replace(poses=poses)
     else:
         pgo_err = torch.zeros((), device=device)
@@ -659,7 +663,8 @@ def finalize(state: EngineState, ec: EngineConfig,
     """End of sequence: one more pose-graph solve if any loop landed, so
     the returned poses reflect every accepted edge."""
     if int(state.n_loops) > 0:
-        poses, _ = _run_pgo(state, state.n, ec)
+        with timing.span("pgo"):
+            poses, _ = _run_pgo(state, state.n, ec)
         state = state.replace(poses=poses)
     return state
 
@@ -753,22 +758,22 @@ class SlamEngine:
         self._pending = []
         if not self._first:
             batch = [self._overlap] + batch
-        xyz, inten, valid = (torch.stack(c) for c in zip(*batch))
-
         self.windows += 1
-        run_er = (self.ec.erasor_every > 0
-                  and self.windows % self.ec.erasor_every == 0)
-        self.state, out = process_window(
-            self.state, xyz, inten, valid, self._first, run_er,
-            self.ec, self.cfg)
-        self._frames += len(batch) if self._first else len(batch) - 1
-        self._overlap = batch[-1]
-        self._first = False
-        self.outputs.append(_numpy_tree(out) if self.materialize_outputs
-                            else out)
-        if self.materialize_outputs:
-            # in-graph writes past K are dropped; the host surfaces them
-            self._check_budget()
+        with timing.span("window", window=self.windows):
+            xyz, inten, valid = (torch.stack(c) for c in zip(*batch))
+            run_er = (self.ec.erasor_every > 0
+                      and self.windows % self.ec.erasor_every == 0)
+            self.state, out = process_window(
+                self.state, xyz, inten, valid, self._first, run_er,
+                self.ec, self.cfg)
+            self._frames += len(batch) if self._first else len(batch) - 1
+            self._overlap = batch[-1]
+            self._first = False
+            self.outputs.append(_numpy_tree(out) if self.materialize_outputs
+                                else out)
+            if self.materialize_outputs:
+                # in-graph writes past K are dropped; the host surfaces them
+                self._check_budget()
 
         if (self.ckpt_dir and self.ckpt_every
                 and self._frames - self._last_ckpt >= self.ckpt_every):
@@ -780,15 +785,16 @@ class SlamEngine:
         """Final PGO + optional last ERASOR sweep using the overlap scan."""
         if len(self._pending):
             self.flush()
-        self._check_budget()
-        self.state = finalize(self.state, self.ec, self.cfg)
-        if final_erasor and self._overlap is not None:
-            xyz, _, valid = self._overlap
-            new_valid, removed = _erasor_pass(
-                self.state, xyz, valid, self.state.last_pose, self.ec)
-            self.state = self.state.replace(
-                submap_valid=new_valid,
-                erasor_removed=self.state.erasor_removed + removed)
+        with timing.span("finalize"):
+            self._check_budget()
+            self.state = finalize(self.state, self.ec, self.cfg)
+            if final_erasor and self._overlap is not None:
+                xyz, _, valid = self._overlap
+                new_valid, removed = _erasor_pass(
+                    self.state, xyz, valid, self.state.last_pose, self.ec)
+                self.state = self.state.replace(
+                    submap_valid=new_valid,
+                    erasor_removed=self.state.erasor_removed + removed)
 
     # -- results ----------------------------------------------------------
 

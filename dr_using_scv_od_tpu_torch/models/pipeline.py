@@ -17,6 +17,7 @@ import torch
 from ..config import PipelineConfig
 from ..types import (STATE_DYNAMIC, ClusterTable, FrameState, PointCloud,
                      stack)
+from ..utils import timing
 from . import patchwork, recognition, segmentation, tracking
 
 
@@ -32,10 +33,13 @@ def process_frame(xyz: torch.Tensor, intensity: torch.Tensor,
                   cfg: PipelineConfig) -> FrameOutput:
     """Single-frame pipeline: ground removal -> curved-voxel build ->
     clustering + refinement -> bbox filter -> recognition."""
-    pw = patchwork.estimate_ground(xyz, valid, cfg.patchwork)
-    seg, point_voxel, grid = segmentation.segment_frame(
-        xyz, intensity, pw.nonground, pw.ground, pw.dropped, cfg)
-    table, feats = recognition.recognize(seg.clusters, seg.n_planar, cfg)
+    with timing.span("patchwork"):
+        pw = patchwork.estimate_ground(xyz, valid, cfg.patchwork)
+    with timing.span("segmentation"):
+        seg, point_voxel, grid = segmentation.segment_frame(
+            xyz, intensity, pw.nonground, pw.ground, pw.dropped, cfg)
+    with timing.span("recognition"):
+        table, feats = recognition.recognize(seg.clusters, seg.n_planar, cfg)
     state = FrameState(
         points=PointCloud(xyz=xyz, intensity=intensity, valid=valid),
         grid=grid,
@@ -106,30 +110,33 @@ def run_window(xyz: torch.Tensor, intensity: torch.Tensor,
     `bbox_dropped_dynamic` also removes the points of clusters that the
     bbox filter erased and routed dynamic (evaluation only). `init_track`:
     optional streaming carry (table, label_grid, counter) for the first
-    frame (interop.track_carry_from_numpy builds one from a JAX run)."""
-    frames = process_window(xyz, intensity, valid, poses, cfg)
+    frame (interop.track_carry_from_numpy builds one from a JAX run).
+    Recorded as span "run_window" (timing.span)."""
+    with timing.span("run_window"):
+        frames = process_window(xyz, intensity, valid, poses, cfg)
 
-    in_grid = frames.state.point_voxel >= 0
-    tr = tracking.track_window(
-        xyz, frames.state.point_voxel, in_grid & valid,
-        frames.state.label_grid, frames.state.clusters, poses, cfg,
-        init_carry=init_track)
+        in_grid = frames.state.point_voxel >= 0
+        with timing.span("tracking"):
+            tr = tracking.track_window(
+                xyz, frames.state.point_voxel, in_grid & valid,
+                frames.state.label_grid, frames.state.clusters, poses, cfg,
+                init_carry=init_track)
 
-    C = cfg.shapes.max_clusters
-    pc = tr.point_cluster
-    dyn_row = tr.tables.state == STATE_DYNAMIC            # [F, C]
-    is_dyn = dyn_row.gather(1, torch.clamp(pc, 0, C - 1).long())
-    removed = (pc >= 0) & is_dyn
-    if bbox_dropped_dynamic:
-        removed = removed | (frames.state.point_route
-                             == segmentation.ROUTE_BBOX_DYNAMIC)
-    if cfg.track.dynamic_bbox_sweep:
-        removed = removed | _dynamic_bbox_sweep(xyz, tr.tables, cfg)
-    removed = removed & valid
+        C = cfg.shapes.max_clusters
+        pc = tr.point_cluster
+        dyn_row = tr.tables.state == STATE_DYNAMIC        # [F, C]
+        is_dyn = dyn_row.gather(1, torch.clamp(pc, 0, C - 1).long())
+        removed = (pc >= 0) & is_dyn
+        if bbox_dropped_dynamic:
+            removed = removed | (frames.state.point_route
+                                 == segmentation.ROUTE_BBOX_DYNAMIC)
+        if cfg.track.dynamic_bbox_sweep:
+            removed = removed | _dynamic_bbox_sweep(xyz, tr.tables, cfg)
+        removed = removed & valid
 
-    return WindowResult(frames=frames, tables=tr.tables,
-                        label_grids=tr.label_grids, point_cluster=pc,
-                        removed=removed, n_dynamic=tr.n_dynamic,
-                        new_row_overflow=tr.new_row_overflow,
-                        track_point_overflow=tr.track_point_overflow,
-                        track_counter=tr.counter)
+        return WindowResult(frames=frames, tables=tr.tables,
+                            label_grids=tr.label_grids, point_cluster=pc,
+                            removed=removed, n_dynamic=tr.n_dynamic,
+                            new_row_overflow=tr.new_row_overflow,
+                            track_point_overflow=tr.track_point_overflow,
+                            track_counter=tr.counter)

@@ -360,9 +360,6 @@ def test_stage_timer_log_format(tmp_path):
     assert shapes[0] == shapes[1] == [[2, 2], [2, 2]]
     timing.sync(None)
     timing.sync({"x": (torch.zeros(2), 3)})
-    with timing.device_trace(tmp_path / "trace"):
-        torch.ones(8).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
 
 
 # ----------------------------------------------------- eval: artifact
