@@ -8,11 +8,15 @@ steps).
 Same math, names and component-major layout (mean [3, G], weight [6, G])
 as the JAX package, so the tests compare like with like. What changes is
 the form of its loops and reductions:
-  * `register`'s `lax.while_loop` is a Python loop whose condition (the
-    first inner step's norm above `tolerance`) is read on the host once per
-    outer pass: at most ceil(max_iters / inner_iters) = 10 reads per
-    pyramid level at the default config. The inner `fori_loop` and
-    `register_global`'s `lax.map` over yaw hypotheses are Python loops.
+  * `register`'s `lax.while_loop` (stop when the first inner step of a
+    pass moves no more than `tolerance`) has two drivers of one outer pass.
+    Off a card, a Python loop reads that test on the host once per pass.
+    On a card, every pass up to ceil(max_iters / inner_iters) runs and a
+    pass after the stop is masked out on the device (`torch.where`, exact),
+    so the result is the same bit for bit; the whole solve is one CUDA
+    graph, captured once per shape and replayed, with no host read. The
+    inner `fori_loop` and `register_global`'s `lax.map` over yaw
+    hypotheses are Python loops.
   * `build_voxel_map` sums through `segment_ops.segment_sum`, sequential
     per voxel in point order, and `pool_voxel_map` adds each coarse
     voxel's children one after another in lexicographic order, as XLA's
@@ -34,6 +38,7 @@ import torch
 
 from ..config import GicpConfig
 from ..ops import geometry, segment_ops
+from ..utils import timing
 
 
 class VoxelMap(NamedTuple):
@@ -71,6 +76,9 @@ class GicpResult(NamedTuple):
 _H_IDX = ((0, 1, 2, 6, 7, 8), (1, 3, 4, 9, 10, 11), (2, 4, 5, 12, 13, 14),
           (6, 9, 12, 15, 16, 17), (7, 10, 13, 16, 18, 19),
           (8, 11, 14, 17, 19, 20))
+# captured solves kept per process (one per shape and config); a call that
+# finds no room runs the same solve eagerly
+MAX_GRAPHS = 8
 
 
 def _grid_dims(cfg: GicpConfig):
@@ -199,35 +207,34 @@ def finalize_target(vm: VoxelMap, cfg: GicpConfig) -> GicpTarget:
                       valid=vm.n >= cfg.min_pts_per_voxel)
 
 
-def register(source_xyz: torch.Tensor, source_valid: torch.Tensor,
-             target: GicpTarget, cfg: GicpConfig,
-             T_init: Optional[torch.Tensor] = None) -> GicpResult:
-    """Gauss-Newton alignment of a source scan to a voxelized target;
-    returns T with target_point ~= T @ source_point (gicp.py:234-402).
+def _subsample(source_xyz: torch.Tensor, source_valid: torch.Tensor,
+               cfg: GicpConfig):
+    """The static-stride source subsample; the target keeps full
+    density."""
+    n = source_xyz.shape[0]
+    if cfg.max_source_points and n > cfg.max_source_points:
+        stride = -(-n // cfg.max_source_points)
+        return source_xyz[::stride], source_valid[::stride]
+    return source_xyz, source_valid
 
-    Each outer pass looks up every source point's voxel once, then runs
-    `cfg.inner_iters` relinearised steps against those frozen Gaussians.
-    The loop stops after ceil(max_iters / inner_iters) passes, or when the
-    first step of a pass moved less than `cfg.tolerance`: that test is the
-    one host read of each pass."""
+
+def _outer_cap(cfg: GicpConfig) -> int:
+    return -(-int(cfg.max_iters) // max(int(cfg.inner_iters), 1))
+
+
+def _solver(source_xyz, source_valid, tgt_all, tgt_valid, cfg: GicpConfig):
+    """(warp, one_pass) for the subsampled source against a target given
+    as its [9, G] stack (mean, weight) and valid mask.
+    `one_pass(T)` looks up every source point's voxel once, then runs
+    `cfg.inner_iters` relinearised steps against those frozen Gaussians; it
+    returns (T, err, n_corr, rmse, first), the statistics of the last step
+    and `first` the norm of the first step."""
     dtype, device = source_xyz.dtype, source_xyz.device
-    if T_init is None:
-        T_init = torch.eye(4, dtype=dtype, device=device)
+    sx, sy, sz = source_xyz[:, 0], source_xyz[:, 1], source_xyz[:, 2]
     nxy, nz = _grid_dims(cfg)
     G = nxy * nxy * nz
     inner = max(int(cfg.inner_iters), 1)
-    outer_cap = -(-int(cfg.max_iters) // inner)
-
-    # static-stride source subsample; the target keeps full density
-    if (cfg.max_source_points and
-            source_xyz.shape[0] > cfg.max_source_points):
-        stride = -(-source_xyz.shape[0] // cfg.max_source_points)
-        source_xyz = source_xyz[::stride]
-        source_valid = source_valid[::stride]
-
-    sx, sy, sz = source_xyz[:, 0], source_xyz[:, 1], source_xyz[:, 2]
     max_d2 = cfg.max_corr_dist ** 2
-    h_idx = torch.tensor(_H_IDX, device=device)
     h_sign = torch.ones(6, 6, dtype=dtype, device=device)
     h_sign[:3, 3:] = h_sign[3:] = -1.0
     ridge = 1e-6 * torch.eye(6, dtype=dtype, device=device)
@@ -279,7 +286,9 @@ def register(source_xyz: torch.Tensor, source_valid: torch.Tensor,
             d2 * m, m]).sum(dim=1)
         n_ok = S[29]
 
-        H = S[h_idx] * h_sign + ridge
+        # S's entries picked one by one: an index tensor would be uploaded
+        H = torch.stack([S[i] for row in _H_IDX for i in row]).reshape(
+            6, 6) * h_sign + ridge
         g = -S[21:27]
         # solve_ex: no host-synchronising error check; a singular H gives
         # non-finite values, which become a zero step
@@ -298,30 +307,176 @@ def register(source_xyz: torch.Tensor, source_valid: torch.Tensor,
                  torch.linalg.vector_norm(dxi))
         return geometry.exp_se3(dxi) @ T, stats
 
-    tgt_all = torch.cat([target.mean, target.weight], dim=0)   # [9, G]
-    T = T_init
-    it = 0
-    delta = math.inf
-    err = rmse = torch.tensor(math.inf, dtype=dtype, device=device)
-    ncorr = torch.zeros((), dtype=torch.int32, device=device)
-    while it < outer_cap and delta > cfg.tolerance:
+    def one_pass(T):
         flat, ok = _voxel_index_s(*warp(T), source_valid, cfg)
         f = torch.clamp(flat, 0, G - 1).long()
-        gathered = (*tgt_all[:, f], ok & target.valid[f])
+        gathered = (*tgt_all[:, f], ok & tgt_valid[f])
         for i in range(inner):
             T, (err, ncorr, rmse, step) = gn_step(T, gathered)
             if i == 0:
                 # judged on the first step after a re-correspondence: later
                 # inner steps converge to the frozen-correspondence fixpoint
                 first = step
+        return T, err, ncorr, rmse, first
+
+    return warp, one_pass
+
+
+def _start(T: torch.Tensor):
+    """(err, n_corr, rmse) before any pass: inf, 0, inf."""
+    inf = torch.full((), math.inf, dtype=T.dtype, device=T.device)
+    return inf, torch.zeros((), dtype=torch.int32, device=T.device), inf
+
+
+def converge_on_host(T, one_pass, cfg: GicpConfig):
+    """Outer passes until ceil(max_iters / inner_iters) of them ran or the
+    first step of a pass moved no more than `cfg.tolerance`, read on the
+    host once per pass. Returns (T, n_iters, err, n_corr, rmse)."""
+    err, ncorr, rmse = _start(T)
+    it, delta = 0, math.inf
+    while it < _outer_cap(cfg) and delta > cfg.tolerance:
+        T, err, ncorr, rmse, first = one_pass(T)
         it += 1
         delta = float(first)
+    return (T, torch.full((), it, dtype=torch.int32, device=T.device), err,
+            ncorr, rmse)
+
+
+def converge_on_device(T, one_pass, cfg: GicpConfig):
+    """`converge_on_host`'s result with no host read: every pass of the cap
+    runs, and those after the stop keep the previous values through
+    `torch.where`, which is exact."""
+    err, ncorr, rmse = _start(T)
+    n_iters = torch.zeros((), dtype=torch.int32, device=T.device)
+    active = torch.ones((), dtype=torch.bool, device=T.device)
+    for _ in range(_outer_cap(cfg)):
+        T1, err1, ncorr1, rmse1, first = one_pass(T)
+        T = torch.where(active, T1, T)
+        err = torch.where(active, err1, err)
+        ncorr = torch.where(active, ncorr1, ncorr)
+        rmse = torch.where(active, rmse1, rmse)
+        n_iters = n_iters + active.to(torch.int32)
+        # float(first) > tolerance: a float32 widened to float64 exactly
+        active = active & (first.double() > cfg.tolerance)
+    return T, n_iters, err, ncorr, rmse
+
+
+def _solve(source_xyz, source_valid, tgt_all, tgt_valid, T_init,
+           cfg: GicpConfig, converge) -> GicpResult:
+    """Registration of an already subsampled source; `converge` is one of
+    the two drivers of the outer passes."""
+    warp, one_pass = _solver(source_xyz, source_valid, tgt_all, tgt_valid,
+                             cfg)
+    T, n_iters, err, ncorr, rmse = converge(T_init, one_pass, cfg)
     T = geometry.orthonormalize_se3(T)
     _, ok_final = _voxel_index_s(*warp(T), source_valid, cfg)
     n_oob = (source_valid & ~ok_final).sum().to(torch.int32)
-    return GicpResult(T=T, n_iters=torch.tensor(it, dtype=torch.int32,
-                                                device=device),
-                      final_error=err, n_corr=ncorr, rmse=rmse, n_oob=n_oob)
+    return GicpResult(T=T, n_iters=n_iters, final_error=err, n_corr=ncorr,
+                      rmse=rmse, n_oob=n_oob)
+
+
+class _Graph:
+    """`_solve` on a card with `converge_on_device`, captured once into a
+    CUDA graph: a call copies its inputs into the static buffers, replays
+    the graph and returns clones of the static outputs."""
+
+    def __init__(self, xyz, valid, target: GicpTarget, T_init,
+                 cfg: GicpConfig):
+        device = xyz.device
+        self.xyz = torch.empty(xyz.shape, dtype=xyz.dtype, device=device)
+        self.valid = torch.empty(valid.shape, dtype=torch.bool,
+                                 device=device)
+        G = target.valid.shape[0]
+        self.tgt = torch.empty((9, G), dtype=target.mean.dtype,
+                               device=device)
+        self.tgt_valid = torch.empty((G,), dtype=torch.bool, device=device)
+        self.T = torch.empty((4, 4), dtype=T_init.dtype, device=device)
+        self.load(xyz, valid, target, T_init)
+
+        def solve():
+            return _solve(self.xyz, self.valid, self.tgt, self.tgt_valid,
+                          self.T, cfg, converge_on_device)
+
+        # warm up on a side stream first, so that the cuBLAS and cuSOLVER
+        # handles and workspaces exist before the capture
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            solve()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = solve()
+
+    def load(self, xyz, valid, target: GicpTarget, T_init) -> None:
+        self.xyz.copy_(xyz)
+        self.valid.copy_(valid)
+        self.tgt[:3].copy_(target.mean)
+        self.tgt[3:].copy_(target.weight)
+        self.tgt_valid.copy_(target.valid)
+        self.T.copy_(T_init)
+
+    def __call__(self, xyz, valid, target: GicpTarget,
+                 T_init) -> GicpResult:
+        self.load(xyz, valid, target, T_init)
+        self.graph.replay()
+        return GicpResult(*(t.clone() for t in self.out))
+
+
+class _Graphs:
+    """The captured solves of the process, by device, dtypes, source points
+    after the subsample, target voxels, config and the float32 matmul
+    precision (read when cuBLAS calls are captured); at most `size`."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.graphs = {}
+
+    def solve(self, xyz, valid, target: GicpTarget, T_init,
+              cfg: GicpConfig) -> GicpResult:
+        key = (xyz.device, xyz.dtype, target.mean.dtype, T_init.dtype,
+               xyz.shape[0], target.valid.shape[0], cfg,
+               torch.backends.cuda.matmul.allow_tf32)
+        g = self.graphs.get(key)
+        if g is None:
+            if len(self.graphs) >= self.size:
+                timing.count("gicp.eager")
+                return _solve(xyz, valid, _target_stack(target), target.valid,
+                              T_init, cfg, converge_on_device)
+            g = self.graphs[key] = _Graph(xyz, valid, target, T_init, cfg)
+        timing.count("gicp.graph")
+        return g(xyz, valid, target, T_init)
+
+
+GRAPHS = _Graphs(MAX_GRAPHS)
+
+
+def _target_stack(target: GicpTarget) -> torch.Tensor:
+    return torch.cat([target.mean, target.weight], dim=0)   # [9, G]
+
+
+def register(source_xyz: torch.Tensor, source_valid: torch.Tensor,
+             target: GicpTarget, cfg: GicpConfig,
+             T_init: Optional[torch.Tensor] = None) -> GicpResult:
+    """Gauss-Newton alignment of a source scan to a voxelized target;
+    returns T with target_point ~= T @ source_point (gicp.py:234-402).
+
+    Each outer pass looks up every source point's voxel once, then runs
+    `cfg.inner_iters` relinearised steps against those frozen Gaussians.
+    The passes stop after ceil(max_iters / inner_iters), or once the first
+    step of a pass moved no more than `cfg.tolerance`. On a card the call
+    is the replay of one CUDA graph per shape (`GRAPHS`) and reads nothing
+    back; elsewhere the stop is read on the host once per pass. Both give
+    the same result bit for bit."""
+    dtype, device = source_xyz.dtype, source_xyz.device
+    if T_init is None:
+        T_init = torch.eye(4, dtype=dtype, device=device)
+    source_xyz, source_valid = _subsample(source_xyz, source_valid, cfg)
+    if device.type == "cuda":
+        return GRAPHS.solve(source_xyz, source_valid, target, T_init, cfg)
+    timing.count("gicp.eager")
+    return _solve(source_xyz, source_valid, _target_stack(target),
+                  target.valid, T_init, cfg, converge_on_host)
 
 
 def pool_voxel_map(vm: VoxelMap, cfg: GicpConfig, factor: int) -> VoxelMap:
@@ -413,9 +568,10 @@ def register_global(source_xyz: torch.Tensor, source_valid: torch.Tensor,
         res = register(source_xyz, source_valid, tgt_c, ccfg, Ti)
         scores.append(res.n_corr.to(torch.float32) - res.rmse)
         Ts.append(res.T)
-    best = torch.argmax(torch.stack(scores))
+    # index_select: indexing with a 0-dim device tensor reads it back
+    best = torch.argmax(torch.stack(scores)).reshape(1)
     return register(source_xyz, source_valid, finalize_target(vm, cfg), cfg,
-                    T_init=torch.stack(Ts)[best])
+                    T_init=torch.stack(Ts).index_select(0, best)[0])
 
 
 def scan_to_scan(source_xyz: torch.Tensor, source_valid: torch.Tensor,

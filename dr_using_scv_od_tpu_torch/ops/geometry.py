@@ -69,9 +69,7 @@ def inverse_se3(T: torch.Tensor) -> torch.Tensor:
     Rt = T[..., :3, :3].transpose(-1, -2)
     ti = -(Rt @ T[..., :3, 3:4])
     top = torch.cat([Rt, ti], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=T.dtype,
-                          device=T.device).expand(T.shape[:-2] + (1, 4))
-    return torch.cat([top, bottom], dim=-2)
+    return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
 def euler_to_matrix(roll: torch.Tensor, pitch: torch.Tensor,
@@ -138,12 +136,21 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
     return _rodrigues(w)[3]
 
 
+def _bottom_row(top: torch.Tensor) -> torch.Tensor:
+    """The rows (0, 0, 0, 1) under [..., 3, 4] blocks, filled on their
+    device: a tensor built from a Python list is a copy from pageable host
+    memory, which waits for the device's queue and cannot be captured into
+    a CUDA graph."""
+    row = torch.zeros(top.shape[:-2] + (1, 4), dtype=top.dtype,
+                      device=top.device)
+    row[..., 3] = 1.0
+    return row
+
+
 def _se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """[...,3,3] rotations and [...,3,1] translations -> [...,4,4]."""
     top = torch.cat([R, t], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(top.shape[:-2] + (1, 4))
-    return torch.cat([top, bottom], dim=-2)
+    return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
 def orthonormalize_se3(T: torch.Tensor) -> torch.Tensor:

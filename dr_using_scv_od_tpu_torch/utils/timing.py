@@ -14,7 +14,8 @@ start and end are read from `time.perf_counter_ns()`, the host clock on
 which a profiler trace's marker ties device time to the host, and on a
 CUDA machine every synchronising operation that PyTorch's sync debug mode
 reports is counted against the innermost open span and the line of the
-port that caused it. Spans never annotate a profiler trace.
+port that caused it, and `count(name)` adds to the record's named counts
+(which path a call took, say). Spans never annotate a profiler trace.
 """
 
 from __future__ import annotations
@@ -145,14 +146,15 @@ class SyncCounts:
 class Record:
     """What one `recording()` block saw. `spans` in the order they opened;
     `syncs` is None where nothing was counted (no CUDA: there is nothing to
-    synchronise); `sync` says the spans synchronised the device at their
-    edges."""
+    synchronise); `counts` the named counts `count()` added; `sync` says
+    the spans synchronised the device at their edges."""
 
     def __init__(self, sync: bool, cuda: bool):
         self.sync = sync
         self.cuda = cuda
         self.spans: List[Span] = []
         self.syncs: Optional[SyncCounts] = SyncCounts() if cuda else None
+        self.counts: collections.Counter[str] = collections.Counter()
         self._open: List[int] = []          # indices of the open spans
         self._ids = itertools.count()       # ids of roots that name none
         self._own_sync = False
@@ -235,6 +237,14 @@ def span(name: str, window: Optional[int] = None):
     if rec is None:
         return _OFF
     return _Open(rec, name, window)
+
+
+def count(name: str) -> None:
+    """Add one to the open recording's count `name`; nothing while no
+    recording is open."""
+    rec = _RECORD
+    if rec is not None:
+        rec.counts[name] += 1
 
 
 @contextlib.contextmanager

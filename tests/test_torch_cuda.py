@@ -31,6 +31,13 @@ CPU's (points on leaf edges included), refine_by_intensity at 24 rounds
 equals kernel 1, and the stage profiler's segment_reduce split reads a
 device time.
 
+GICP as a CUDA graph: `register` on the card (one captured solve per
+shape, replayed) equals the eager early-exit loop on the card bit for bit,
+at 32,768 and 4,096 source points against both pyramid levels, and with
+two targets through one cached graph; `exp_se3`, `inverse_se3` and
+`register` (capture and replay) raise nothing under the sync debug mode
+"error"; a recording counts each call's path.
+
 The SLAM engine's parts: two runs on the card are identical (no scatter of
 the engine path adds floats through atomics); `posegraph.optimize` on the
 card agrees with the CPU within 1e-4 where its CG converges, ERASOR's
@@ -62,7 +69,7 @@ from dr_using_scv_od_tpu_torch.ops import ri3_labels as ri3
 from dr_using_scv_od_tpu_torch.ops import tile_plan
 from dr_using_scv_od_tpu_torch.tools import profile_stages
 from dr_using_scv_od_tpu_torch.types import VoxelGrid
-from dr_using_scv_od_tpu_torch.utils import io_kitti, synthetic
+from dr_using_scv_od_tpu_torch.utils import io_kitti, synthetic, timing
 
 pytestmark = pytest.mark.cuda
 
@@ -304,6 +311,139 @@ def test_register_on_card_matches_cpu(cuda_device):
     assert gpu.T.device == cuda_device
     assert float((gpu.T.cpu() - cpu.T).abs().max()) < 5e-4
     assert abs(int(gpu.n_corr) - int(cpu.n_corr)) <= 0.01 * int(cpu.n_corr)
+
+
+@pytest.fixture(scope="module")
+def gicp_scans():
+    """Two full-width synthetic scans on the card and the coarse and fine
+    targets of each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: CUDA graphs exist only there")
+    dev = torch.device("cuda", 0)
+    cfg = config.semantickitti()
+    win = synthetic.render_window(synthetic.make_scene(), 3,
+                                  cfg.shapes.max_points)
+    xyz = torch.from_numpy(win["xyz"]).to(dev)
+    valid = torch.from_numpy(win["valid"]).to(dev)
+    targets = [gicp.build_targets(gicp.build_voxel_map(xyz[f], valid[f],
+                                                       cfg.gicp), cfg.gicp)
+               for f in (0, 2)]
+    return xyz, valid, targets, cfg.gicp
+
+
+@pytest.fixture
+def fresh_graphs(monkeypatch):
+    """An empty cache of captured solves for the test."""
+    graphs = gicp._Graphs(gicp.MAX_GRAPHS)
+    monkeypatch.setattr(gicp, "GRAPHS", graphs)
+    return graphs
+
+
+def _source(xyz, valid, points):
+    """Frame 1 as 131,072 points (32,768 after register's subsample) or
+    every 32nd point (4,096, a loop submap's size)."""
+    if points == 32768:
+        return xyz[1], valid[1]
+    return xyz[1][::32].contiguous(), valid[1][::32].contiguous()
+
+
+def _eager(xyz, valid, target, cfg, T_init):
+    """The early-exit loop on the card, with its host read per pass."""
+    xyz, valid = gicp._subsample(xyz, valid, cfg)
+    return gicp._solve(xyz, valid, gicp._target_stack(target), target.valid,
+                       T_init, cfg, gicp.converge_on_host)
+
+
+def _level(targets, level, cfg):
+    tgt_c, ccfg, tgt_f = targets
+    return (tgt_c, ccfg) if level == "coarse" else (tgt_f, cfg)
+
+
+def _assert_same(a, b):
+    for name in gicp.GicpResult._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("level", ["coarse", "fine"])
+@pytest.mark.parametrize("points", [32768, 4096])
+def test_register_graph_equals_eager_on_card(gicp_scans, fresh_graphs,
+                                             points, level):
+    xyz, valid, targets, cfg = gicp_scans
+    src, sv = _source(xyz, valid, points)
+    tgt, c = _level(targets[0], level, cfg)
+    T_init = geometry.pose_to_matrix(torch.tensor(
+        (0.3, -0.1, 0.0, 0.0, 0.0, 0.02), device=xyz.device))
+    if level == "fine":        # from the coarse pose: stops before the cap
+        tgt_c, ccfg, _ = targets[0]
+        T_init = _eager(src, sv, tgt_c, ccfg, T_init).T
+    first = gicp.register(src, sv, tgt, c, T_init)      # capture, replay
+    again = gicp.register(src, sv, tgt, c, T_init)      # replay
+    eager = _eager(src, sv, tgt, c, T_init)
+    assert len(fresh_graphs.graphs) == 1
+    _assert_same(first, eager)
+    _assert_same(again, eager)
+    n, cap = int(eager.n_iters), gicp._outer_cap(c)
+    print(points, level, "passes", n, "of", cap, "n_corr",
+          int(eager.n_corr))
+    assert int(eager.n_corr) > 100
+    assert n == cap if level == "coarse" else n < cap
+
+
+@pytest.mark.parametrize("level", ["coarse", "fine"])
+def test_one_graph_serves_two_targets(gicp_scans, fresh_graphs, level):
+    """The static buffers are refilled on each call: two targets (frames 0
+    and 2) and two starts through one cached graph give each call's own
+    eager result."""
+    xyz, valid, targets, cfg = gicp_scans
+    src, sv = _source(xyz, valid, 32768)
+    calls = []
+    for k, yaw in ((0, 0.0), (1, 0.05), (0, 0.05), (1, 0.0)):
+        tgt, c = _level(targets[k], level, cfg)
+        T_init = geometry.pose_to_matrix(torch.tensor(
+            (0.2, 0.0, 0.0, 0.0, 0.0, yaw), device=xyz.device))
+        calls.append((gicp.register(src, sv, tgt, c, T_init),
+                      _eager(src, sv, tgt, c, T_init)))
+    assert len(fresh_graphs.graphs) == 1
+    for got, want in calls:
+        _assert_same(got, want)
+    assert not torch.equal(calls[0][0].T, calls[1][0].T)
+
+
+def test_register_makes_no_host_sync(gicp_scans, fresh_graphs):
+    xyz, valid, targets, cfg = gicp_scans
+    tgt_c, ccfg, _ = targets[0]
+    xi = torch.randn(16, 6, device=xyz.device) * 0.1
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T = geometry.exp_se3(xi)
+        geometry.inverse_se3(T)
+        geometry.orthonormalize_se3(T)
+        for _ in range(2):                          # capture, then replay
+            res = gicp.register(xyz[1], valid[1], tgt_c, ccfg, T[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert int(res.n_iters) >= 1
+
+
+def test_recording_counts_the_path_of_each_call(gicp_scans, monkeypatch):
+    """With room for one captured solve: the first call captures and
+    replays it, the second replays it, a second shape runs eagerly."""
+    xyz, valid, targets, cfg = gicp_scans
+    tgt_c, ccfg, tgt_f = targets[0]
+    monkeypatch.setattr(gicp, "GRAPHS", gicp._Graphs(1))
+    with timing.recording() as rec:
+        gicp.register(xyz[1], valid[1], tgt_c, ccfg)
+        after_first = dict(rec.counts)
+        gicp.register(xyz[1], valid[1], tgt_c, ccfg)
+        after_second = dict(rec.counts)
+        eager = gicp.register(xyz[1], valid[1], tgt_f, cfg)
+    assert after_first == {"gicp.graph": 1}
+    assert after_second == {"gicp.graph": 2}
+    assert rec.counts == {"gicp.graph": 2, "gicp.eager": 1}
+    _assert_same(eager, _eager(xyz[1], valid[1], tgt_f, cfg, torch.eye(
+        4, device=xyz.device)))
 
 
 def _square_graph():

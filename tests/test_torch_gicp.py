@@ -16,6 +16,8 @@ Tolerances, stated per check (measured on the CPU in brackets):
     Gauss-Newton sums reduce in another order, so a pass may stop one
     iteration earlier or later: n_iters is not held, n_corr within 1 %.
   * se(3) helpers: 1e-6 absolute (float32 sin/cos).
+  * the two drivers of register's outer passes (the host's early exit and
+    the device's masked fixed cap): identical, every field.
 """
 
 import dataclasses
@@ -32,6 +34,7 @@ from dr_using_scv_od_tpu.utils import synthetic
 from dr_using_scv_od_tpu_torch import config, interop
 from dr_using_scv_od_tpu_torch.models import gicp
 from dr_using_scv_od_tpu_torch.ops import geometry
+from dr_using_scv_od_tpu_torch.utils import timing
 
 T_ATOL = 1e-5
 PROFILES = ("semantickitti", "tiny_test")
@@ -255,3 +258,53 @@ def test_register_targets_reuses_prebuilt_targets(maps, frames):
                               flat)
     d = gicp.register(_t(xyz[1]), _t(valid[1]), tgt_f, flat)
     assert torch.equal(c.T, d.T)
+
+
+@pytest.fixture(scope="module")
+def moved_pair():
+    """The structured cloud and a copy moved 1 m, 0.3 m and 3.4 degrees,
+    with the coarse and fine targets of the cloud."""
+    cfg = config.semantickitti().gicp
+    target = _structured_cloud(np.random.default_rng(2))
+    T = geometry.pose_to_matrix(torch.tensor(
+        (1.0, -0.3, 0.05, 0.01, -0.01, 0.06))).numpy()
+    src = ((target - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
+    valid = torch.ones(len(src), dtype=torch.bool)
+    vm = gicp.build_voxel_map(_t(target), valid, cfg)
+    return _t(src), valid, gicp.build_targets(vm, cfg)
+
+
+@pytest.mark.parametrize("case", ["converges", "cap", "empty"])
+def test_device_convergence_equals_the_early_exit(moved_pair, case):
+    """converge_on_device, run eagerly on the CPU (no graph), gives
+    register's early-exit result bit for bit: a fine pass that stops before
+    the cap (from the coarse pose), a coarse one that runs to the cap (from
+    the identity), and a target with no valid voxel (a zero step, one
+    pass)."""
+    src, valid, (tgt_c, ccfg, tgt_f) = moved_pair
+    cfg = config.semantickitti().gicp
+    T_init = torch.eye(4)
+    if case == "converges":
+        T_init = gicp.register(src, valid, tgt_c, ccfg).T
+        tgt = tgt_f
+    elif case == "cap":
+        tgt, cfg = tgt_c, ccfg
+    else:
+        tgt = tgt_f._replace(valid=torch.zeros_like(tgt_f.valid))
+    with timing.recording() as rec:
+        host = gicp.register(src, valid, tgt, cfg, T_init)
+    assert rec.counts == {"gicp.eager": 1}
+    xyz, v = gicp._subsample(src, valid, cfg)
+    dev = gicp._solve(xyz, v, gicp._target_stack(tgt), tgt.valid, T_init,
+                      cfg, gicp.converge_on_device)
+    for name in gicp.GicpResult._fields:
+        a, b = getattr(host, name), getattr(dev, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    n, cap = int(host.n_iters), gicp._outer_cap(cfg)
+    if case == "converges":
+        assert 1 < n < cap
+    elif case == "cap":
+        assert n == cap
+    else:
+        assert n == 1 and int(host.n_corr) == 0
+        assert torch.equal(host.T, geometry.orthonormalize_se3(T_init))

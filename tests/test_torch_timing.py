@@ -295,6 +295,23 @@ def test_mode_and_filters_come_back_after_an_exception(fake_mode):
     assert timing._RECORD is None
 
 
+def test_named_counts_are_kept_inside_a_recording_only():
+    timing.count("a")                     # no recording open: kept nowhere
+    assert timing._RECORD is None
+    with timing.recording() as first:
+        for name in ("a", "b", "a", "a"):
+            timing.count(name)
+    timing.count("a")
+    with timing.recording() as second:
+        timing.count("b")
+        with pytest.raises(RuntimeError, match="already open"):
+            with timing.recording():      # a record inside another: refused
+                timing.count("b")         # before its body runs
+        timing.count("b")
+    assert first.counts == {"a": 3, "b": 1}
+    assert second.counts == {"b": 2}
+
+
 # the kinds of synchronisation, each on a line of its own, compiled under a
 # file name of the port's package so that the recorder counts them there
 PROBE = """
