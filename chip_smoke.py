@@ -138,7 +138,6 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
-import argparse
 import contextlib
 import dataclasses
 import io
@@ -966,9 +965,8 @@ def cli_phase(dev, cfg, res, cpu_res, metrics_judged, scene):
     # of what `slam --data` does to a scan before the engine sees it
     # (decode, down-sample, pad, upload), then the decode and the
     # down-sample alone
-    args = argparse.Namespace(data=str(data), labels=None, start=0, end=0)
     eng = engine.SlamEngine(cfg, bench.slam_config(), device=dev)
-    scans, n = cli.stream_scans(args, cfg)
+    scans, n = cli.stream_scans(data, cfg)
     t0 = time.perf_counter()
     for scan in scans:
         eng._scan(*scan)

@@ -245,35 +245,57 @@ def cmd_bench_table(args):
     return 0
 
 
-def stream_scans(args, cfg):
-    """The `--data <dir>` scan stream of `slam`: (iterator of padded
-    (xyz [N,3] f32, intensity [N] f32, valid [N] bool) numpy scans decoded
-    ahead by utils/prefetch.ScanPrefetcher, number of scans). The engine
-    uploads each scan to its device as it is fed."""
-    from .utils import io_kitti
+def stream_scans(data, cfg, start=0, end=0, labels=None):
+    """The `--data <dir>` scan stream of `slam`: (generator of padded
+    (xyz [N,3] f32, intensity [N] f32, valid [N] bool) numpy scans, number
+    of scans). It reads the `.bin` files start, start + cfg.skip, ... below
+    `end` (all of them where `end` <= 0) of the KITTI directory `data`,
+    with the `.label` files of the directory `labels` where one is given,
+    decoded ahead by utils/prefetch.ScanPrefetcher; each scan is
+    down-sampled to the first point of each 0.08 m leaf and padded to
+    cfg.shapes.max_points. The engine uploads each scan to its device as it
+    is fed. Closing the generator closes the prefetcher and its reader.
+
+    Inside `timing.recording()` each scan is two spans, `scan_read` (the
+    wait for the decoded scan) and `downsample` (the down-sample and the
+    padding), and adds to the counts `scan.points_read` (points decoded),
+    `scan.points_kept` (points the padded scan holds) and `scan.native` or
+    `scan.python` (the prefetch tier that decoded it)."""
+    from .utils import io_kitti, timing
     from .utils.prefetch import ScanPrefetcher
-    bins = io_kitti.sorted_frame_files(args.data, ".bin")
-    labs = (io_kitti.sorted_frame_files(args.labels, ".label")
-            if args.labels else None)
-    end = args.end if args.end > 0 else len(bins)
-    sel = list(range(args.start, min(end, len(bins)), cfg.skip))
+    bins = io_kitti.sorted_frame_files(data, ".bin")
+    labs = (io_kitti.sorted_frame_files(labels, ".label")
+            if labels else None)
+    end = end if end > 0 else len(bins)
+    sel = list(range(start, min(end, len(bins)), cfg.skip))
     pf = ScanPrefetcher(
         [bins[i] for i in sel],
         [labs[i] for i in sel] if labs else None,
         max_points=cfg.shapes.max_points * 4,
         max_intensity=cfg.max_intensity)
+    tier = "scan.native" if pf.native else "scan.python"
 
     def scans():
         N = cfg.shapes.max_points
-        for xyz, inten, _lab in pf:
-            keep = io_kitti._voxel_downsample_np(xyz, 0.08)
-            xyz, inten = xyz[keep], inten[keep]
-            n = min(len(xyz), N)
-            X = np.zeros((N, 3), np.float32)
-            I = np.zeros((N,), np.float32)
-            V = np.zeros((N,), bool)
-            X[:n], I[:n], V[:n] = xyz[:n], inten[:n], True
-            yield X, I, V
+        decoded = iter(pf)
+        try:
+            for _ in sel:
+                with timing.span("scan_read"):
+                    xyz, inten, _lab = next(decoded)
+                with timing.span("downsample"):
+                    keep = io_kitti._voxel_downsample_np(xyz, 0.08)
+                    kept_xyz, kept_inten = xyz[keep], inten[keep]
+                    n = min(len(kept_xyz), N)
+                    X = np.zeros((N, 3), np.float32)
+                    I = np.zeros((N,), np.float32)
+                    V = np.zeros((N,), bool)
+                    X[:n], I[:n], V[:n] = kept_xyz[:n], kept_inten[:n], True
+                timing.count(tier)
+                timing.count("scan.points_read", len(xyz))
+                timing.count("scan.points_kept", n)
+                yield X, I, V
+        finally:
+            decoded.close()
 
     return scans(), len(sel)
 
@@ -302,7 +324,8 @@ def cmd_slam(args):
         # (the reference decodes synchronously inside its frame loop,
         # src/ssc.cpp:1046-1058).
         win = None
-        scan_iter, F = stream_scans(args, cfg)
+        scan_iter, F = stream_scans(args.data, cfg, args.start,
+                                    args.end, args.labels)
     ec = engine.EngineConfig(
         window=args.window, max_keyframes=args.max_keyframes,
         submap_points=args.submap_points,

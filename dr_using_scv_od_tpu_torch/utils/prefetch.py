@@ -115,6 +115,8 @@ class ScanPrefetcher:
         import threading
         q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         END, ERR = object(), object()
+        # set once the consumer has gone: the reader puts nothing more
+        stop = threading.Event()
 
         def work():
             try:
@@ -129,21 +131,34 @@ class ScanPrefetcher:
                         labels = np.zeros(
                             min(len(full), self.max_points), np.uint32)
                     q.put((full[:self.max_points], labels, bool(l)))
+                    if stop.is_set():
+                        return
                 q.put(END)
             except Exception as e:  # surfaced on the consumer side
                 q.put((ERR, e))
 
         t = threading.Thread(target=work, daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is END:
-                break
-            if isinstance(item, tuple) and item[0] is ERR:
-                raise item[1]
-            pts, labels, has_lab = item
-            yield self._postprocess(pts, labels, has_lab)
-        t.join()
+        try:
+            while True:
+                item = q.get()
+                if item is END:
+                    break
+                if isinstance(item, tuple) and item[0] is ERR:
+                    raise item[1]
+                pts, labels, has_lab = item
+                yield self._postprocess(pts, labels, has_lab)
+        finally:
+            # a consumer that stops early (closes the generator) frees the
+            # reader: emptying the queue after `stop` is set unblocks its
+            # put, after which it returns; a put it makes later finds room
+            stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join()
 
     # -- shared ------------------------------------------------------------
 

@@ -14,7 +14,7 @@ start and end are read from `time.perf_counter_ns()`, the host clock on
 which a profiler trace's marker ties device time to the host, and on a
 CUDA machine every synchronising operation that PyTorch's sync debug mode
 reports is counted against the innermost open span and the line of the
-port that caused it, and `count(name)` adds to the record's named counts
+port that caused it, and `count(name, n)` adds to the record's named counts
 (which path a call took, say). Spans never annotate a profiler trace.
 """
 
@@ -239,12 +239,12 @@ def span(name: str, window: Optional[int] = None):
     return _Open(rec, name, window)
 
 
-def count(name: str) -> None:
-    """Add one to the open recording's count `name`; nothing while no
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the open recording's count `name`; nothing while no
     recording is open."""
     rec = _RECORD
     if rec is not None:
-        rec.counts[name] += 1
+        rec.counts[name] += n
 
 
 @contextlib.contextmanager
