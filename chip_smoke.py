@@ -963,8 +963,8 @@ def cli_phase(dev, cfg, res, cpu_res, metrics_judged, scene):
 
     # ---- the host's share of the --data path, the device idle: the whole
     # of what `slam --data` does to a scan before the engine sees it
-    # (decode, down-sample, pad, upload), then the decode and the
-    # down-sample alone
+    # (decode, the down-sample and padding on the card, upload), then the
+    # decode and the down-sample alone, on the host and on the card
     eng = engine.SlamEngine(cfg, bench.slam_config(), device=dev)
     scans, n = cli.stream_scans(data, cfg)
     t0 = time.perf_counter()
@@ -978,13 +978,23 @@ def cli_phase(dev, cfg, res, cpu_res, metrics_judged, scene):
                                        max_intensity=cfg.max_intensity))
     decode_ms = (time.perf_counter() - t0) * 1e3 / n
     t0 = time.perf_counter()
-    kept = sum(int(io_kitti._voxel_downsample_np(xyz, 0.08).sum())
-               for xyz, _, _ in raw)
+    kept = [int(io_kitti._voxel_downsample_np(xyz, 0.08).sum())
+            for xyz, _, _ in raw]
     down_ms = (time.perf_counter() - t0) * 1e3 / n
-    _log(f"cli slam --data: host decode + down-sample + pad + upload "
+    card = cli._pad_on(dev, N, 4 * N)
+    card(*raw[0][:2])
+    t0 = time.perf_counter()
+    kept_card = [int(card(xyz, inten)[2].sum()) for xyz, inten, _ in raw]
+    card_ms = (time.perf_counter() - t0) * 1e3 / n
+    _check(kept_card == [min(k, N) for k in kept],
+           "the card down-sample kept other counts than the host's")
+    kept = sum(kept)
+    _log(f"cli slam --data: decode + down-sample + pad + upload "
          f"{scan_ms:.3f} ms per scan over {n} scans; decode alone "
          f"{decode_ms:.3f} ms, 0.08 m down-sample alone {down_ms:.3f} ms "
-         f"({kept // n} of {sum(len(r[0]) for r in raw) // n} points kept; "
+         f"on the host, {card_ms:.3f} ms on the card with the padding, "
+         f"upload and read-back ({kept // n} of "
+         f"{sum(len(r[0]) for r in raw) // n} points kept; "
          f"native prefetcher: {io_kitti._native() is not None})")
     shutil.rmtree(root)
     return launches

@@ -245,7 +245,62 @@ def cmd_bench_table(args):
     return 0
 
 
-def stream_scans(data, cfg, start=0, end=0, labels=None):
+LEAF_M = 0.08       # `slam --data`'s down-sample leaf (metres)
+
+
+def _pad_on_host(N):
+    """The host form of the down-sample and the padding: numpy."""
+    from .utils import io_kitti
+
+    def down(xyz, inten):
+        keep = io_kitti._voxel_downsample_np(xyz, LEAF_M)
+        kept_xyz, kept_inten = xyz[keep], inten[keep]
+        n = min(len(kept_xyz), N)
+        X = np.zeros((N, 3), np.float32)
+        I = np.zeros((N,), np.float32)
+        V = np.zeros((N,), bool)
+        X[:n], I[:n], V[:n] = kept_xyz[:n], kept_inten[:n], True
+        return X, I, V
+    return down
+
+
+def _pad_on(device, N, cap):
+    """The down-sample and the padding by `quantize.first_point_per_leaf`
+    on `device` (the CPU or a card). On a card the decoded points go up
+    through one pinned buffer reused every scan, the work runs on a CUDA
+    stream of the scan stream's own (so the read-back waits for none of
+    the engine's queued work) and X, I, V come back through pinned
+    buffers with one sync of that stream."""
+    from .ops import quantize
+
+    if device.type != "cuda":
+        def down(xyz, inten):
+            return tuple(t.numpy() for t in quantize.first_point_per_leaf(
+                torch.from_numpy(xyz), torch.from_numpy(inten), LEAF_M, N))
+        return down
+
+    stream = torch.cuda.Stream(device)
+    stage = torch.empty((cap, 4), dtype=torch.float32, pin_memory=True)
+    staged = stage.numpy()
+    back = (torch.empty((N, 3), dtype=torch.float32, pin_memory=True),
+            torch.empty((N,), dtype=torch.float32, pin_memory=True),
+            torch.empty((N,), dtype=torch.bool, pin_memory=True))
+
+    def down(xyz, inten):
+        m = len(xyz)
+        staged[:m, :3], staged[:m, 3] = xyz, inten
+        with torch.cuda.stream(stream):
+            pts = stage[:m].to(device, non_blocking=True)
+            out = quantize.first_point_per_leaf(pts[:, :3], pts[:, 3],
+                                                LEAF_M, N)
+            for host, src in zip(back, out):
+                host.copy_(src, non_blocking=True)
+        stream.synchronize()
+        return tuple(host.numpy().copy() for host in back)
+    return down
+
+
+def stream_scans(data, cfg, start=0, end=0, labels=None, device=None):
     """The `--data <dir>` scan stream of `slam`: (generator of padded
     (xyz [N,3] f32, intensity [N] f32, valid [N] bool) numpy scans, number
     of scans). It reads the `.bin` files start, start + cfg.skip, ... below
@@ -256,11 +311,18 @@ def stream_scans(data, cfg, start=0, end=0, labels=None):
     cfg.shapes.max_points. The engine uploads each scan to its device as it
     is fed. Closing the generator closes the prefetcher and its reader.
 
+    The down-sample and the padding run on `device`, by
+    `quantize.first_point_per_leaf`; with `device` None, on the card where
+    one is visible, and otherwise on the host in numpy. Both keep the same
+    points bit for bit.
+
     Inside `timing.recording()` each scan is two spans, `scan_read` (the
     wait for the decoded scan) and `downsample` (the down-sample and the
-    padding), and adds to the counts `scan.points_read` (points decoded),
-    `scan.points_kept` (points the padded scan holds) and `scan.native` or
-    `scan.python` (the prefetch tier that decoded it)."""
+    padding, on a card with the upload and the read-back), and adds to the
+    counts `scan.points_read` (points decoded), `scan.points_kept` (points
+    the padded scan holds), `scan.native` or `scan.python` (the prefetch
+    tier that decoded it) and `scan.leaf_card` or `scan.leaf_host` (where
+    it was down-sampled)."""
     from .utils import io_kitti, timing
     from .utils.prefetch import ScanPrefetcher
     bins = io_kitti.sorted_frame_files(data, ".bin")
@@ -268,31 +330,32 @@ def stream_scans(data, cfg, start=0, end=0, labels=None):
             if labels else None)
     end = end if end > 0 else len(bins)
     sel = list(range(start, min(end, len(bins)), cfg.skip))
+    cap = cfg.shapes.max_points * 4
     pf = ScanPrefetcher(
         [bins[i] for i in sel],
         [labs[i] for i in sel] if labs else None,
-        max_points=cfg.shapes.max_points * 4,
-        max_intensity=cfg.max_intensity)
+        max_points=cap, max_intensity=cfg.max_intensity)
     tier = "scan.native" if pf.native else "scan.python"
+    if device is None and torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = None if device is None else torch.device(device)
+    where = ("scan.leaf_card" if device is not None
+             and device.type == "cuda" else "scan.leaf_host")
 
     def scans():
         N = cfg.shapes.max_points
+        down = _pad_on_host(N) if device is None else _pad_on(device, N, cap)
         decoded = iter(pf)
         try:
             for _ in sel:
                 with timing.span("scan_read"):
                     xyz, inten, _lab = next(decoded)
                 with timing.span("downsample"):
-                    keep = io_kitti._voxel_downsample_np(xyz, 0.08)
-                    kept_xyz, kept_inten = xyz[keep], inten[keep]
-                    n = min(len(kept_xyz), N)
-                    X = np.zeros((N, 3), np.float32)
-                    I = np.zeros((N,), np.float32)
-                    V = np.zeros((N,), bool)
-                    X[:n], I[:n], V[:n] = kept_xyz[:n], kept_inten[:n], True
+                    X, I, V = down(xyz, inten)
                 timing.count(tier)
+                timing.count(where)
                 timing.count("scan.points_read", len(xyz))
-                timing.count("scan.points_kept", n)
+                timing.count("scan.points_kept", int(V.sum()))
                 yield X, I, V
         finally:
             decoded.close()
@@ -325,7 +388,7 @@ def cmd_slam(args):
         # src/ssc.cpp:1046-1058).
         win = None
         scan_iter, F = stream_scans(args.data, cfg, args.start,
-                                    args.end, args.labels)
+                                    args.end, args.labels, device=dev)
     ec = engine.EngineConfig(
         window=args.window, max_keyframes=args.max_keyframes,
         submap_points=args.submap_points,

@@ -145,3 +145,49 @@ def voxel_downsample(xyz: torch.Tensor, valid: torch.Tensor, leaf: float,
     keep = torch.zeros_like(first)
     keep[order] = first & (skey != side ** 3)
     return keep
+
+
+def leaf_index(xyz: torch.Tensor, leaf: float) -> torch.Tensor:
+    """[N, 3] int64 leaf indices floor(xyz / leaf) of float32 points, as
+    `np.floor(xyz / np.float32(leaf)).astype(np.int64)` gives them on an
+    x86 host: the quotient is a true float32 division (never a product by
+    1 / leaf, which moves points on a leaf edge), and a quotient that is
+    not finite or lies outside int64 gives INT64_MIN, where a CUDA
+    conversion would saturate."""
+    q = torch.floor(geometry.div_exact(xyz, leaf))
+    in_range = (q >= -2.0 ** 63) & (q < 2.0 ** 63)      # false for NaN
+    return torch.where(in_range, q.long(), -2 ** 63)
+
+
+def first_point_per_leaf(xyz: torch.Tensor, intensity: torch.Tensor,
+                         leaf: float, n_out: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`cli slam --data`'s scan down-sample on the points' device, with no
+    host read: of the points [M, 3] float32 that share all three
+    `leaf_index`es, the one with the lowest index, the kept points in
+    point order in the front of (X [n_out, 3], I [n_out], V [n_out] bool),
+    cut at n_out, zeros and V false beyond. Bit for bit the host's
+    `utils/io_kitti._voxel_downsample_np` followed by the padding.
+
+    Unlike `voxel_downsample` (the JAX package's rule: clipped, truncated
+    indices) the leaves are unbounded; three stable sorts by k, j, then i
+    group them as `np.lexsort` does, and the first row of each run is its
+    leaf's first point."""
+    ijk = leaf_index(xyz, leaf)
+    order = torch.argsort(ijk[:, 2], stable=True)
+    for axis in (1, 0):
+        order = order[torch.argsort(ijk[order, axis], stable=True)]
+    s = ijk[order]
+    start = torch.ones(len(order), dtype=torch.bool, device=xyz.device)
+    start[1:] = (s[1:] != s[:-1]).any(1)
+    keep = torch.empty_like(start)
+    keep[order] = start
+    slot = torch.cumsum(keep, 0) - 1
+    # points not kept, or past the cut, go to a row that is dropped
+    dest = torch.where(keep & (slot < n_out), slot, n_out)
+    X = xyz.new_zeros(n_out + 1, 3)
+    I = intensity.new_zeros(n_out + 1)
+    X[dest] = xyz
+    I[dest] = intensity
+    V = torch.arange(n_out, device=xyz.device) < keep.sum()
+    return X[:n_out], I[:n_out], V

@@ -31,6 +31,11 @@ CPU's (points on leaf edges included), refine_by_intensity at 24 rounds
 equals kernel 1, and the stage profiler's segment_reduce split reads a
 device time.
 
+`cli slam --data`'s scan stream: by default it down-samples on the card,
+and its scans equal the host's numpy down-sample and padding bit for bit
+(points on leaf edges, far out, infinite and NaN among them); it counts
+every scan as `scan.leaf_card` and syncs once a scan inside `downsample`.
+
 GICP as a CUDA graph: `register` on the card (one captured solve per
 shape, replayed) equals the eager early-exit loop on the card bit for bit,
 at 32,768 and 4,096 source points against both pyramid levels, and with
@@ -50,6 +55,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 
 import numpy as np
 import pytest
@@ -69,7 +75,8 @@ from dr_using_scv_od_tpu_torch.ops import ri3_labels as ri3
 from dr_using_scv_od_tpu_torch.ops import tile_plan
 from dr_using_scv_od_tpu_torch.tools import profile_stages
 from dr_using_scv_od_tpu_torch.types import VoxelGrid
-from dr_using_scv_od_tpu_torch.utils import io_kitti, synthetic, timing
+from dr_using_scv_od_tpu_torch.utils import (io_kitti, prefetch, synthetic,
+                                             timing)
 
 pytestmark = pytest.mark.cuda
 
@@ -588,6 +595,64 @@ def test_voxel_downsample_on_card_matches_cpu(cuda_device, leaf):
                                     torch.from_numpy(valid).to(cuda_device),
                                     leaf)
     assert torch.equal(got.cpu(), want)
+
+
+def _leaf_scan(rng, n):
+    """n float32 points, a third on 0.08 m leaf edges or a float either
+    side, the rest spread and repeated within their leaves, with far,
+    infinite and NaN points; reflectance in [0, 1]."""
+    edge = rng.integers(-300, 300, size=(n // 3, 3)).astype(
+        np.float32) * np.float32(0.08)
+    edge = np.where(rng.random(edge.shape) < 0.3,
+                    np.nextafter(edge, np.float32(-np.inf)), edge)
+    free = rng.uniform(-24, 24, size=(n - len(edge), 3)).astype(np.float32)
+    odd = np.array([[1e6, -1e6, 0], [np.inf, 0, 0], [-np.inf, 1, 1],
+                    [np.nan, 0, 0], [0, 0, np.nan], [1e30, 0, 0],
+                    [-1e30, 0, 0]], np.float32)
+    xyz = np.concatenate([edge, free, free[: n // 4] + np.float32(0.01),
+                          odd])
+    xyz = xyz[rng.permutation(len(xyz))]
+    refl = rng.uniform(0, 1, size=(len(xyz), 1)).astype(np.float32)
+    return np.concatenate([xyz, refl], 1)
+
+
+def test_scan_stream_down_samples_on_card_as_the_host(cuda_device,
+                                                      tmp_path):
+    """The third scan's kept points overflow the 4,096-point padding."""
+    cfg = config.tiny_test()
+    N = cfg.shapes.max_points
+    rng = np.random.default_rng(17)
+    d = tmp_path / "velodyne"
+    d.mkdir()
+    files = [d / f"{k * cfg.skip:06d}.bin" for k in range(3)]
+    for k, (f, n) in enumerate(zip(files, (900, 3000, 9000))):
+        _leaf_scan(rng, n).tofile(f)
+        for j in range(1, cfg.skip):     # the files the stream skips
+            os.link(f, d / f"{k * cfg.skip + j:06d}.bin")
+    with np.errstate(invalid="ignore"):
+        pts = np.concatenate([np.fromfile(f, np.float32).reshape(-1, 4)
+                              for f in files])
+        want = np.floor(pts[:, :3] / np.float32(0.08)).astype(np.int64)
+    got = quantize.leaf_index(torch.from_numpy(pts[:, :3]).to(cuda_device),
+                              0.08)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+    host = cli._pad_on_host(N)
+    with np.errstate(invalid="ignore"):
+        want = [host(xyz, inten) for xyz, inten, _ in prefetch.ScanPrefetcher(
+            files, None, max_points=4 * N, max_intensity=cfg.max_intensity)]
+    assert want[-1][2].all()                      # the cut at N is tested
+    with timing.recording() as rec:
+        scans, n = cli.stream_scans(d, cfg)
+        got = list(scans)
+    assert n == len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    assert rec.counts["scan.leaf_card"] == n
+    assert "scan.leaf_host" not in rec.counts
+    assert rec.syncs.by_span["downsample"] == n
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -2,12 +2,15 @@
 tiny_test() sizes, against the plain reference reader of the benchmark
 (`benchmark/reference/scan_stream.py`): the padded scans are the
 reference's bit for bit on both prefetch tiers (the C++ ring and the
-Python thread), with points planted on 0.08 m leaf edges and several
-points to a leaf; an engine session fed from the stream is the session
-fed from the reference's scans; inside `timing.recording()` each scan is
-one `scan_read` and one `downsample` span and the `scan.*` counts are the
-points decoded and kept; a stream closed half-read leaves no reader
-running."""
+Python thread) and on both down-sample paths (the host's numpy and
+`quantize.first_point_per_leaf` in torch), with points planted on 0.08 m
+leaf edges and several points to a leaf; `first_point_per_leaf` keeps the
+host's points bit for bit, points far out, infinite and NaN among them;
+an engine session fed from the stream is the session fed from the
+reference's scans; inside `timing.recording()` each scan is one
+`scan_read` and one `downsample` span and the `scan.*` counts are the
+points decoded and kept and the path each scan took; a stream closed
+half-read leaves no reader running."""
 
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ import torch
 from benchmark.reference import scan_stream
 from dr_using_scv_od_tpu_torch import cli, config
 from dr_using_scv_od_tpu_torch.models import engine
-from dr_using_scv_od_tpu_torch.utils import prefetch, synthetic, timing
+from dr_using_scv_od_tpu_torch.ops import quantize
+from dr_using_scv_od_tpu_torch.utils import (io_kitti, prefetch, synthetic,
+                                             timing)
 
 CFG = config.tiny_test()        # 4,096 points a scan, every 5th file
 EC = engine.EngineConfig(window=4, max_keyframes=16, submap_points=256,
@@ -91,15 +96,23 @@ def _native_or_skip():
     return lib
 
 
+def _leaf_path(device):
+    """The count of the down-sample path `stream_scans` takes on `device`."""
+    on_card = (torch.device(device).type == "cuda" if device is not None
+               else torch.cuda.is_available())
+    return "scan.leaf_card" if on_card else "scan.leaf_host"
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
 @pytest.mark.parametrize("tier", ["native", "python"])
 def test_the_stream_is_the_reference_bit_for_bit(edge_dir, monkeypatch,
-                                                 tier):
+                                                 tier, device):
     if tier == "python":
         _python_tier(monkeypatch)
     else:
         _native_or_skip()
     want = _reference(edge_dir)
-    scans, n = cli.stream_scans(edge_dir, CFG)
+    scans, n = cli.stream_scans(edge_dir, CFG, device=device)
     got = list(scans)
     assert n == len(got) == len(want) == 4
     kept = [int(v.sum()) for _, _, v in want]
@@ -110,12 +123,54 @@ def test_the_stream_is_the_reference_bit_for_bit(edge_dir, monkeypatch,
             assert a.dtype == b.dtype and a.shape == b.shape
             np.testing.assert_array_equal(a, b)
     # start / end pick the same files on both sides
-    part, m = cli.stream_scans(edge_dir, CFG, start=5, end=16)
+    part, m = cli.stream_scans(edge_dir, CFG, start=5, end=16,
+                               device=device)
     want = _reference(edge_dir, start=5, end=16)
     assert m == len(want) == 3
     for g, w in zip(part, want):
         for a, b in zip(g, w):
             np.testing.assert_array_equal(a, b)
+
+
+def _padded(xyz, inten, keep, n_out):
+    X = np.zeros((n_out, 3), np.float32)
+    I = np.zeros((n_out,), np.float32)
+    V = np.zeros((n_out,), bool)
+    n = min(int(keep.sum()), n_out)
+    X[:n], I[:n], V[:n] = xyz[keep][:n], inten[keep][:n], True
+    return X, I, V
+
+
+@pytest.mark.parametrize("n_out", [4096, 1024])
+def test_first_point_per_leaf_keeps_the_hosts_points(rng, n_out):
+    """On the edge scan's points, with points at +-1e6 m, +-inf and NaN
+    mixed in: the torch form keeps the points the host's numpy mask keeps
+    (and the reference's), pads them as the stream does, and cuts them at
+    n_out (1,024 cuts, 4,096 does not)."""
+    pts = _edge_scan(rng, 2400)
+    odd = np.array([[1e6, -1e6, 0.0], [-1e6, 1e6, 1e6], [np.inf, 0, 0],
+                    [-np.inf, 0, 0], [0, np.inf, -np.inf], [np.nan, 0, 0],
+                    [0, 0, np.nan], [np.nan, np.nan, np.nan],
+                    [1e30, 0, 0], [-1e30, 0, 0]], np.float32)
+    odd = np.concatenate([odd, odd + np.float32(0.01)])
+    xyz = np.concatenate([pts[:, :3], odd])
+    perm = rng.permutation(len(xyz))
+    xyz = np.ascontiguousarray(xyz[perm])
+    inten = rng.uniform(0, 255, size=len(xyz)).astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        keep = io_kitti._voxel_downsample_np(xyz, LEAF)
+        np.testing.assert_array_equal(
+            scan_stream.first_per_leaf(xyz, LEAF), keep)
+        want_ijk = np.floor(xyz / np.float32(LEAF)).astype(np.int64)
+    np.testing.assert_array_equal(
+        quantize.leaf_index(torch.from_numpy(xyz), LEAF).numpy(), want_ijk)
+    assert (keep.sum() > n_out) == (n_out == 1024)
+    got = quantize.first_point_per_leaf(torch.from_numpy(xyz),
+                                        torch.from_numpy(inten), LEAF, n_out)
+    for a, b in zip(got, _padded(xyz, inten, keep, n_out)):
+        assert a.numpy().dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.numpy().view(np.uint8),
+                                      b.view(np.uint8))
 
 
 def test_the_reference_keeps_the_first_point_of_a_leaf():
@@ -169,15 +224,17 @@ def test_an_engine_session_fed_from_the_stream_is_the_references(tmp_path):
     assert got[3] == want[3]
 
 
+@pytest.mark.parametrize("device", [None, "cpu"])
 @pytest.mark.parametrize("tier", ["native", "python"])
 def test_each_scan_is_one_read_and_one_downsample_span(edge_dir,
-                                                       monkeypatch, tier):
+                                                       monkeypatch, tier,
+                                                       device):
     if tier == "python":
         _python_tier(monkeypatch)
     else:
         _native_or_skip()
     with timing.recording() as rec:
-        scans, n = cli.stream_scans(edge_dir, CFG)
+        scans, n = cli.stream_scans(edge_dir, CFG, device=device)
         got = list(scans)
     names = [s.name for s in rec.spans]
     assert names == ["scan_read", "downsample"] * n
@@ -186,10 +243,10 @@ def test_each_scan_is_one_read_and_one_downsample_span(edge_dir,
     read = sum(min(f.stat().st_size // 16, 4 * CFG.shapes.max_points)
                for f in files)
     assert dict(rec.counts) == {
-        f"scan.{tier}": n, "scan.points_read": read,
+        f"scan.{tier}": n, _leaf_path(device): n, "scan.points_read": read,
         "scan.points_kept": sum(int(v.sum()) for _, _, v in got)}
     # outside a recording the stream records nothing and yields the same
-    again, _ = cli.stream_scans(edge_dir, CFG)
+    again, _ = cli.stream_scans(edge_dir, CFG, device=device)
     for g, w in zip(again, got):
         for a, b in zip(g, w):
             np.testing.assert_array_equal(a, b)
