@@ -118,17 +118,7 @@ def test_a_failing_section_ends_the_run_without_a_headline():
     assert "[trace]" in proc.stderr      # the sections before it ran
 
 
-@pytest.fixture
-def one_thread():
-    """One torch thread for an in-process run: the test workers share the
-    cores, and a worker's default thread count oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_engine_trace_refuses_a_written_snapshot(monkeypatch, one_thread):
+def test_engine_trace_refuses_a_written_snapshot(monkeypatch):
     """A traced engine call that writes into the snapshot's tensors ends
     the engine-trace section with an error (the port's window step writes
     into copies, so the snapshot must stay as it was)."""

@@ -5,6 +5,7 @@ tracking carry. Tolerance: none (all equalities are exact)."""
 
 import ast
 import dataclasses
+import os
 import pathlib
 import subprocess
 import sys
@@ -234,6 +235,15 @@ def test_worker_of_the_parallel_tests_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_a_test_process_runs_torch_on_its_share_of_the_cores():
+    """The root conftest.py gives each test process the cores it can run on
+    over the pytest-xdist workers that share them (1 without xdist), at
+    least one: the workers' pools never oversubscribe the machine."""
+    cores = len(os.sched_getaffinity(0))
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    assert torch.get_num_threads() == max(1, cores // workers)
 
 
 @pytest.mark.parametrize("profile", PROFILES)
