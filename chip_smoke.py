@@ -6,11 +6,14 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
 
 Phases (each raises on failure, so the script exits non-zero):
   1. require CUDA, switch TF32 off, print the card's name and power limit;
-  2. build the three kernels (csrc/cluster_labels.cu, cc_labels.cu,
-     ri3_labels.cu) with nvcc for sm_90a, one process each, in parallel;
+  2. build the four kernels (csrc/cluster_labels.cu, cc_labels.cu,
+     ri3_labels.cu, segment_sum.cu) with nvcc for sm_90a, one process
+     each, in parallel;
   3. run the main path, run_window at the full semantickitti() width
      (N = 131,072 points, G = 1,296,000 voxels, C = 512 clusters) on a
-     5-frame synthetic window, counting the kernel's launches, and hold
+     5-frame synthetic window, counting cluster_labels' launches and
+     segment_sum's (as many as the CPU run's planned segment sums, 5 a
+     frame), and hold
      PR > 99 / RR > 96 / F1 > 0.97; print how many entries of removed,
      point_cluster, point_route and label_grids differ from the port's CPU
      run of the same window, and hold them identical;
@@ -131,7 +134,15 @@ Phases (each raises on failure, so the script exits non-zero):
      exit 0, one stdout line with its five keys, `device` this card,
      vs_baseline = BASELINE_MS / value to the rounding, every section's
      stderr lines (printed here), and its per-section cluster_labels
-     launches equal to what its calls imply (`bench_launches`).
+     launches equal to what its calls imply (`bench_launches`);
+ 17. the segment-sum kernel (csrc/segment_sum.cu) at the main path's
+     planned sums of one full-width frame (patchwork's three plane fits
+     and z histogram, the curved-voxel moments) and of the GICP voxel map
+     (kernel_times.main_path_segment_sums): equal to segment_sum_reference
+     on the same card tensors (torch.equal, in each of 10 launches), each
+     launch under sync debug mode "error"; its wall ms beside the plain
+     version's, and its device ms (CUDA events around a CUDA graph of 20
+     calls, the output's zero fill included) against its bound.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -173,7 +184,8 @@ from dr_using_scv_od_tpu_torch.parallel import mesh as pmesh
 from dr_using_scv_od_tpu_torch.tools import (bench, cascade_experiment,
                                              drive_e2e, engine_scale,
                                              kernel_times, profile_stages)
-from dr_using_scv_od_tpu_torch.utils import io_kitti, prefetch, synthetic
+from dr_using_scv_od_tpu_torch.utils import (io_kitti, prefetch, synthetic,
+                                             timing)
 
 F_CHECK = 5        # window judged against the accuracy floors
 F_TIME = 6         # window timed (bench.py's shape)
@@ -228,6 +240,8 @@ HARD_SCENES = {
     "clutter": (dict(wall_parked_cars=2, stop_frame=2, n_trees=12), 6),
 }
 BENCH_TIMEOUT = 600
+# phase 17: the planned sum whose times the `kernels` line gives
+SEGMENT_SUM_TIMED = "voxel-moments"
 BENCH_PREFIXES = ("[device]", "[stages ms/frame]", "[roofline]", "[trace]",
                   "[odometry]", "[slam]", "[engine-trace]", "[kernels]")
 
@@ -1358,6 +1372,57 @@ def bench_phase() -> int:
     return sum(counts.values())
 
 
+def segment_sum_phase(dev) -> dict:
+    """Phase 17. Returns the kernel's entry of the `kernels` line, timed at
+    the curved-voxel moments (SEGMENT_SUM_TIMED)."""
+    calls = kernel_times.main_path_segment_sums(dev)
+    max_err, row = 0.0, None
+    for name, (x, order, seg_sorted, num) in calls.items():
+        def kernel():
+            return segment_ops.segment_sum_planned(x, order, seg_sorted, num)
+
+        def plain():
+            return segment_ops.segment_sum_reference(x, order, seg_sorted,
+                                                     num)
+        want = plain()
+        for _ in range(CHECK_REPS):
+            before = segment_ops.segment_sum.launches
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = kernel()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            _check(segment_ops.segment_sum.launches == before + 1,
+                   f"{name}: segment_sum did not launch the kernel once")
+            max_err = max(max_err, float((got - want).abs().max()))
+            _check(torch.equal(got, want), f"segment_sum {name}: the "
+                   f"kernel's sums differ from segment_sum_reference")
+        kernel_ms, plain_ms = (_time_ms(fn, KERNEL_REPS)
+                               for fn in (kernel, plain))
+        device_ms = kernel_times.graph_ms(kernel, KERNEL_REPS)
+        bound_ms = kernel_times.segment_sum_bound_bytes(
+            x, seg_sorted, num) / kernel_times.HBM_BYTES_PER_S * 1e3
+        dropped = int((seg_sorted == num).sum())
+        _log(f"segment_sum {name} {tuple(x.shape)} -> {num} ({dropped} rows "
+             f"dropped): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; "
+             f"device {device_ms:.4f} ms per call (bound {bound_ms:.6f} ms, "
+             f"{100 * bound_ms / device_ms:.2f} % of it)")
+        if name == SEGMENT_SUM_TIMED:
+            row = {"name": "segment_sum", "route": "cuda",
+                   "source": "dr_using_scv_od_tpu_torch/csrc/segment_sum.cu",
+                   "replaces": "torch.segment_reduce (the JAX package sums "
+                               "with XLA scatter-adds)",
+                   "ms": kernel_ms, "plain_ms": plain_ms,
+                   "device_ms": device_ms, "bound_ms": bound_ms,
+                   "bound_by": "bytes",
+                   "share_of_bound": bound_ms / device_ms,
+                   "library_ms": None}
+    _log(f"segment_sum == segment_sum_reference on {len(calls)} planned "
+         f"sums x {CHECK_REPS} launches, no host sync")
+    return dict(row, max_abs_err=max_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1373,10 +1438,10 @@ def main() -> int:
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
          f"python {sys.version.split()[0]}")
 
-    # ---- 2. build the three kernels in parallel
+    # ---- 2. build the four kernels in parallel
     t0 = time.perf_counter()
     libs = cuda_build.build_libraries("cluster_labels", "cc_labels",
-                                      "ri3_labels")
+                                      "ri3_labels", "segment_sum")
     _log(f"built {', '.join(p.name for p in libs.values())} in "
          f"{time.perf_counter() - t0:.1f} s")
 
@@ -1388,10 +1453,13 @@ def main() -> int:
     args = interop.window_from_numpy(win, dev)
     for k in KERNELS:
         k.launches = 0
+    segment_ops.segment_sum.launches = 0
     res = pipeline.run_window(*args, cfg)
     torch.cuda.synchronize()
     launches = cl.cluster_labels.launches
-    _log(f"run_window: {launches} cluster_labels launches")
+    seg_launches = segment_ops.segment_sum.launches
+    _log(f"run_window: {launches} cluster_labels launches, {seg_launches} "
+         f"segment_sum launches")
     _check(launches >= F_CHECK, "run_window did not go through the "
            "cluster_labels kernel on every frame")
 
@@ -1413,7 +1481,13 @@ def main() -> int:
     _check(m.pr > 99.0 and m.rr > 96.0 and m.f1 > 0.97,
            "accuracy floors PR > 99 / RR > 96 / F1 > 0.97 missed")
 
-    ref = pipeline.run_window(*interop.window_from_numpy(win, "cpu"), cfg)
+    with timing.recording() as rec:
+        ref = pipeline.run_window(*interop.window_from_numpy(win, "cpu"),
+                                  cfg)
+    cpu_sums = rec.counts["segment_sum.plain"]
+    _check(seg_launches == cpu_sums >= 5 * F_CHECK,
+           f"run_window launched segment_sum {seg_launches} times on the "
+           f"card; the CPU run made {cpu_sums} planned segment sums")
     n_valid = int(win["valid"].sum())
     diff = card_vs_cpu(res, ref)
     _log(f"cuda vs cpu port: entries that differ {json.dumps(diff)} "
@@ -1639,6 +1713,9 @@ def main() -> int:
     hard_launches = hard_scenes_phase(dev, cfg)
     bench_total = bench_phase()
 
+    # ---- 17. the segment-sum kernel at the main path's planned sums
+    seg_row = segment_sum_phase(dev)
+
     # cluster_labels: launches of the engine's path (phase 10); phase 3
     # counted run_window's, phase 12 the entry points' and phase 13 the
     # sharded window's
@@ -1655,6 +1732,10 @@ def main() -> int:
                      + sum(scale_launches.values()) + bench_total,
                      "cc_labels": prof_launches["cc_labels"],
                      "ri3_labels": prof_launches["ri3_labels"]}
+    # segment_sum: phase 3's main path; every card phase's segment sums
+    # ran it, segment_sum_launches in all
+    _log(f"segment_sum launches: run_window {seg_launches}, all phases "
+         f"{segment_ops.segment_sum.launches}")
     for name, n in parts_launches.items():
         launch_counts[name] += n
     errs["cluster_labels"] = max(errs["cluster_labels"], max_err)
@@ -1677,7 +1758,7 @@ def main() -> int:
         "bound_by": "bytes",
         "share_of_bound": kernel_times.bound_ms(name, G0, M0) / device[name],
         "library_ms": None,
-    } for name in replaces]}))
+    } for name in replaces] + [dict(seg_row, launches=seg_launches)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -89,15 +89,14 @@ def _edge_jacobians(pg: PoseGraph):
 class _NodeSum(NamedTuple):
     """Plan of the per-node sums over the rows [edge_i rows; edge_j rows]."""
     order: torch.Tensor
-    lengths: torch.Tensor
+    seg_sorted: torch.Tensor
     num: int
 
 
 def _node_plan(pg: PoseGraph) -> _NodeSum:
     F = pg.poses.shape[0]
     ids = torch.cat([pg.edge_i, pg.edge_j])
-    order, lengths = segment_ops.segment_plan(ids, F)
-    return _NodeSum(order, lengths, F)
+    return _NodeSum(*segment_ops.segment_plan(ids, F), F)
 
 
 def _node_sum(plan: _NodeSum, rows_i: torch.Tensor,
@@ -105,7 +104,7 @@ def _node_sum(plan: _NodeSum, rows_i: torch.Tensor,
     """[F, 6]: out[k] = sum of rows_i over edges with edge_i == k, then
     rows_j over edges with edge_j == k, each in edge order."""
     return segment_ops.segment_sum_planned(
-        torch.cat([rows_i, rows_j]), plan.order, plan.lengths, plan.num)
+        torch.cat([rows_i, rows_j]), plan.order, plan.seg_sorted, plan.num)
 
 
 def _jt(J: torch.Tensor, r: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -8,13 +8,37 @@ on a TPU. Here they are direct: `bincount` with exact float64 weights,
 two JAX functions have no counterpart: `small_table_lookup` (a select
 tree in place of an indexed gather) and `segment_minmax_bcast` (a
 broadcast compare in place of the min/max scatter of `segment_minmax`).
+
+`segment_sum` (and `segment_sum_planned`) dispatches on the device of its
+operand, with no fallback:
+
+  * a CPU tensor goes to `segment_sum_reference`, the plain version:
+    `torch.segment_reduce` over the gathered rows, with lengths from
+    `bincount`;
+  * a CUDA tensor goes to the hand-written kernel of csrc/segment_sum.cu
+    (see its header for the design), which sums only the kept runs of the
+    sorted ids and makes no host read, or the call raises.
+
+The kernel is built with nvcc for sm_90a at first use (ops/cuda_build.py).
+`segment_sum.launches` counts its launches; inside `timing.recording()`
+each launch counts `segment_sum.card` and each CPU call
+`segment_sum.plain`. A card call with no row, id or column launches
+nothing and returns zeros.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import List, Tuple
 
 import torch
+
+from ..utils import timing
+from . import cuda_build
+
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 2
+             + (ctypes.c_int,) * 2)
 
 
 def _bucket(ids: torch.Tensor, num: int, valid=None) -> torch.Tensor:
@@ -32,25 +56,63 @@ def segment_sum(x: torch.Tensor, ids: torch.Tensor, num: int
     other ids are dropped.
 
     Deterministic on every device: rows are stably sorted by id and each
-    segment is summed in one sequential pass (`segment_reduce`), so the
-    float result does not depend on thread timing, and each sum runs in
-    row order, as a sequential scatter-add does."""
+    segment is summed in one sequential pass from +0.0, so the float
+    result does not depend on thread timing, and each sum runs in row
+    order, as a sequential scatter-add does."""
     return segment_sum_planned(x, *segment_plan(ids, num), num)
+
+
+segment_sum.launches = 0
 
 
 def segment_plan(ids: torch.Tensor, num: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(order, lengths) of `segment_sum` over `ids`, for callers that sum
-    several arrays over the same ids: the stable sort by id, and the row
-    count of each id in [0, num] (num is the dropped bucket)."""
-    seg = _bucket(ids, num)
-    seg_sorted, order = torch.sort(seg, stable=True)
-    return order, torch.bincount(seg_sorted, minlength=num + 1)
+    """(order, sorted ids) of `segment_sum` over `ids`, for callers that sum
+    several arrays over the same ids: the stable sort of the ids, each
+    outside [0, num) routed to the dropped bucket num, and the sorted
+    ids."""
+    seg_sorted, order = torch.sort(_bucket(ids, num), stable=True)
+    return order, seg_sorted
 
 
 def segment_sum_planned(x: torch.Tensor, order: torch.Tensor,
-                        lengths: torch.Tensor, num: int) -> torch.Tensor:
-    """`segment_sum` with the plan of `segment_plan`."""
+                        seg_sorted: torch.Tensor, num: int) -> torch.Tensor:
+    """`segment_sum` with the plan of `segment_plan`: the kernel on a card,
+    `segment_sum_reference` on the CPU."""
+    if x.device.type == "cpu":
+        timing.count("segment_sum.plain")
+        return segment_sum_reference(x, order, seg_sorted, num)
+    if x.device.type != "cuda":
+        raise ValueError(f"no segment_sum kernel for {x.device}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the segment_sum kernel takes float32 or float64, "
+                        f"got {x.dtype}")
+    M, K = x.shape[0], math.prod(x.shape[1:])
+    cuda_build.check_input("order", order, torch.int64, M, x.device)
+    cuda_build.check_input("seg_sorted", seg_sorted, torch.int64, M,
+                           x.device)
+    out = torch.zeros((num,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    if M and num and K:
+        rows = x.reshape(M, K).contiguous()
+        timing.count("segment_sum.card")
+        cuda_build.launch("segment_sum", _ARGTYPES, x.device,
+                          rows.data_ptr(), order.data_ptr(),
+                          seg_sorted.data_ptr(), out.data_ptr(), M, num, K,
+                          int(x.dtype == torch.float64))
+        segment_sum.launches += 1
+    return out
+
+
+def segment_sum_reference(x: torch.Tensor, order: torch.Tensor,
+                          seg_sorted: torch.Tensor, num: int
+                          ) -> torch.Tensor:
+    """The plain version of `segment_sum_planned`: `torch.segment_reduce`
+    over the rows gathered in sorted order, with each id's row count from
+    `bincount` (num, the dropped bucket, included and cut off). On a card
+    the bincount reads back two values, and the kernel there walks every
+    segment, the dropped bucket too, in one thread."""
+    lengths = torch.bincount(seg_sorted, minlength=num + 1)
     # unsafe=True skips a host-synchronising check of lengths.sum(); the
     # lengths count exactly the rows of x
     return torch.segment_reduce(x[order], "sum", lengths=lengths,

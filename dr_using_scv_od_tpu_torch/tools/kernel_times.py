@@ -44,6 +44,10 @@ Which one a source has is read from its text (`tile_smem` in it or not).
 The two versions are timed in turns (baseline, package, package,
 baseline) and each must give the plain version's labels. The baseline
 sources are not part of the package.
+
+`main_path_segment_sums` and `segment_sum_bound_bytes` give the operands
+and the bound of the segment-sum kernel (csrc/segment_sum.cu), which
+chip_smoke.py and tests/test_torch_cuda.py check and time.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import subprocess
 import sys
 import time
@@ -60,9 +65,9 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from .. import config, interop
-from ..models import pipeline
+from ..models import gicp, patchwork, pipeline
 from ..ops import cc_labels, cluster_labels, clustering, cuda_build
-from ..ops import ri3_labels, tile_plan
+from ..ops import quantize, ri3_labels, segment_ops, tile_plan
 from ..utils import synthetic
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
@@ -141,6 +146,59 @@ def graph_ms(fn: Callable[[], object], reps: int, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * reps)
+
+
+def segment_sum_bound_bytes(x: torch.Tensor, seg_sorted: torch.Tensor,
+                            num: int) -> int:
+    """The bytes a planned segment sum must move: the kept rows of x read
+    once, the sorted ids and the order read once (16 B a row) and the
+    [num, K] output written once."""
+    K, size = math.prod(x.shape[1:]), x.element_size()
+    kept = int((seg_sorted < num).sum())
+    return kept * K * size + 16 * x.shape[0] + num * K * size
+
+
+def main_path_segment_sums(device: torch.device
+                           ) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """{name: (x, order, sorted ids, num)} of the planned segment sums the
+    main path makes on frame 0 of a rendered full-width window: patchwork's
+    three plane fits and z histogram, the curved-voxel moments, and the
+    GICP voxel map at 262,144 (two scans), 131,072 and 12,288 rows."""
+    cfg = config.semantickitti()
+    win = synthetic.render_window(synthetic.make_scene(), 2,
+                                  cfg.shapes.max_points)
+    xyz, valid, inten = (torch.from_numpy(win[k]).to(device)
+                         for k in ("xyz", "valid", "intensity"))
+    calls = []
+    planned = segment_ops.segment_sum_planned
+
+    def keep(x, order, seg_sorted, num):
+        calls.append((x, order, seg_sorted, num))
+        return planned(x, order, seg_sorted, num)
+
+    sums = {}
+    segment_ops.segment_sum_planned = keep
+    try:
+        patchwork.estimate_ground(xyz[0], valid[0], cfg.patchwork)
+        widths = [c[0].shape[1] for c in calls]
+        if widths.count(10) != 3 or widths.count(256) != 1:
+            raise RuntimeError(f"patchwork's planned sums changed: widths "
+                               f"{widths}")
+        sums.update({f"plane-fit-{i}": c for i, c in
+                     enumerate(c for c in calls if c[0].shape[1] == 10)})
+        sums["z-histogram"] = next(c for c in calls if c[0].shape[1] == 256)
+        _, flat, fov = quantize.quantize(xyz[0], valid[0], cfg.grid)
+        quantize.voxel_stats_moments(flat, xyz[0], inten[0], fov, cfg.grid)
+        sums["voxel-moments"] = calls[-1]
+        for name, (pts, ok) in {
+                "gicp-262144": (xyz.reshape(-1, 3), valid.reshape(-1)),
+                "gicp-131072": (xyz[1], valid[1]),
+                "gicp-12288": (xyz[1, :12288], valid[1, :12288])}.items():
+            gicp.build_voxel_map(pts, ok, cfg.gicp)
+            sums[name] = calls[-1]
+    finally:
+        segment_ops.segment_sum_planned = planned
+    return sums
 
 
 def wall_ms(fn: Callable[[], object], reps: int) -> float:

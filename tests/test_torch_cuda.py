@@ -67,13 +67,13 @@ from dr_using_scv_od_tpu_torch.eval import artifact
 from dr_using_scv_od_tpu_torch.models import (engine, erasor, gicp, patchwork,
                                               pipeline, posegraph,
                                               scan_context, segmentation)
-from dr_using_scv_od_tpu_torch.ops import geometry, quantize
+from dr_using_scv_od_tpu_torch.ops import geometry, quantize, segment_ops
 from dr_using_scv_od_tpu_torch.ops import cc_labels as cc
 from dr_using_scv_od_tpu_torch.ops import cluster_labels as cl
 from dr_using_scv_od_tpu_torch.ops import clustering
 from dr_using_scv_od_tpu_torch.ops import ri3_labels as ri3
 from dr_using_scv_od_tpu_torch.ops import tile_plan
-from dr_using_scv_od_tpu_torch.tools import profile_stages
+from dr_using_scv_od_tpu_torch.tools import kernel_times, profile_stages
 from dr_using_scv_od_tpu_torch.types import VoxelGrid
 from dr_using_scv_od_tpu_torch.utils import (io_kitti, prefetch, synthetic,
                                              timing)
@@ -680,6 +680,125 @@ def test_profiler_split_reads_segment_reduce(cuda_device):
     out = profile_stages.run(["segrest"], config.tiny_test(), cuda_device,
                              reps=2, split=True)
     assert out["segment_frame FULL segment_reduce"] > 0
+
+
+# ------------------------------------------------------------ segment sums
+
+@contextlib.contextmanager
+def _no_host_sync():
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def _kernel_sum(x, order, seg_sorted, num):
+    """The card path of `segment_sum_planned`, under sync debug mode
+    "error", checking that it launched the kernel once."""
+    before = segment_ops.segment_sum.launches
+    with _no_host_sync():
+        got = segment_ops.segment_sum_planned(x, order, seg_sorted, num)
+    assert segment_ops.segment_sum.launches == before + 1
+    return got
+
+
+@pytest.fixture(scope="module")
+def main_path_segment_sums():
+    """{name: (x, order, sorted ids, num)} of the planned sums that the
+    main path makes on a rendered full-width frame: patchwork's three
+    plane fits and z histogram, the curved-voxel moments, and the GICP
+    voxel map at 262,144 (two scans), 131,072 and 12,288 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    return kernel_times.main_path_segment_sums(torch.device("cuda", 0))
+
+
+MAIN_PATH_SUMS = ["plane-fit-0", "plane-fit-1", "plane-fit-2", "z-histogram",
+                  "voxel-moments", "gicp-262144", "gicp-131072",
+                  "gicp-12288"]
+
+
+@pytest.mark.parametrize("name", MAIN_PATH_SUMS)
+def test_segment_sum_kernel_equals_segment_reduce_on_main_path(
+        main_path_segment_sums, name):
+    """The kernel against torch.segment_reduce on the card (the path it
+    replaced), bit for bit, at the main path's operands; the dropped
+    bucket holds tens of thousands of rows."""
+    x, order, seg_sorted, num = main_path_segment_sums[name]
+    want = segment_ops.segment_sum_reference(x, order, seg_sorted, num)
+    got = _kernel_sum(x, order, seg_sorted, num)
+    dropped = int((seg_sorted == num).sum())
+    print(f"{name}: {tuple(x.shape)} -> {num}, {dropped} rows dropped")
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want)
+    assert bool(got.abs().sum() > 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", [1, 10, 12, 40, 256])
+@pytest.mark.parametrize("case", ["heavy-drop", "long-runs", "all-dropped",
+                                  "ragged"])
+def test_segment_sum_kernel_equals_segment_reduce_on_random_cases(
+        cuda_device, case, K, dtype):
+    """Random operands with most rows in the dropped bucket, runs of
+    thousands of rows, every row dropped, and a row count that is no
+    multiple of 32: the kernel equals torch.segment_reduce on the card
+    ([M, K], a thread per (segment, column) summing in row order) bit for
+    bit."""
+    g = torch.Generator(device="cpu").manual_seed(K * 10 + len(case))
+    M, num = {"heavy-drop": (50_000, 5_000), "long-runs": (40_000, 9),
+              "all-dropped": (3_000, 100), "ragged": (1_001, 77)}[case]
+    ids = torch.randint(-2, num + 2, (M,), generator=g)
+    if case == "heavy-drop":
+        ids = torch.where(torch.rand(M, generator=g) < 0.7, num, ids)
+    elif case == "all-dropped":
+        ids = torch.where(ids % 2 == 0, -1, num + 3)
+    x = torch.randn(M, K, generator=g, dtype=dtype)
+    x[torch.rand(M, generator=g) < 0.1] = -0.0
+    x, ids = x.to(cuda_device), ids.to(cuda_device)
+    order, seg_sorted = segment_ops.segment_plan(ids, num)
+    want = segment_ops.segment_sum_reference(x, order, seg_sorted, num)
+    got = _kernel_sum(x, order, seg_sorted, num)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+
+
+def test_segment_sum_kernel_sums_a_vector_in_row_order(cuda_device):
+    """An [M] operand: the card sums each segment in row order, as the CPU
+    does (torch.segment_reduce reduced [M] by a tree on the card)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn(20_000, generator=g) * 1e4
+    ids = torch.randint(-1, 30, (20_000,), generator=g)
+    want = segment_ops.segment_sum(x, ids, 30)
+    order, seg_sorted = segment_ops.segment_plan(ids.to(cuda_device), 30)
+    got = _kernel_sum(x.to(cuda_device), order, seg_sorted, 30)
+    assert got.shape == (30,) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(0,), (0, 3), (0, 256)])
+def test_segment_sum_kernel_of_no_rows_is_zeros(cuda_device, shape):
+    """No row: zeros of [num, ...], as on the CPU, no launch and no count."""
+    x = torch.zeros(shape, device=cuda_device)
+    ids = torch.zeros(0, dtype=torch.long, device=cuda_device)
+    before = segment_ops.segment_sum.launches
+    with timing.recording() as rec, _no_host_sync():
+        got = segment_ops.segment_sum(x, ids, 5)
+    assert segment_ops.segment_sum.launches == before
+    assert rec.counts == {}
+    assert got.shape == (5,) + shape[1:] and not bool(got.any())
+
+
+def test_segment_sum_counts_the_card_path(cuda_device):
+    x = torch.ones(100, 3, device=cuda_device)
+    ids = torch.arange(100, device=cuda_device) % 7
+    with timing.recording() as rec:
+        s = segment_ops.segment_sum(x, ids, 5)
+    assert rec.counts == {"segment_sum.card": 1}
+    assert torch.equal(s[:, 0].cpu(), torch.tensor([15.0, 15, 14, 14, 14]))
+    with pytest.raises(TypeError):
+        segment_ops.segment_sum(x.half(), ids, 5)
 
 
 # ---------------------------------------------------------------- bin edges

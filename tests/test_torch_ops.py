@@ -169,6 +169,115 @@ def test_segment_sum_is_sequential_and_drops_outside():
         segment_ops.segment_sum(x, ids, 3).numpy(), [[0.0], [0.0], [5.0]])
 
 
+def _sums_in_row_order(x, ids, num):
+    """numpy: each id in [0, num) adds its rows in row order, from +0.0."""
+    rows = x.reshape(len(x), -1)
+    out = np.zeros((num, rows.shape[1]), x.dtype)
+    for i, s in enumerate(ids):
+        if 0 <= s < num:
+            out[s] = out[s] + rows[i]
+    return out.reshape((num,) + x.shape[1:])
+
+
+def _segment_case(case, K, dtype, rng):
+    """(x [M] for K == 1, else [M, K]; ids [M] int32; num) of one case."""
+    M, num = 300, 40
+    ids = rng.integers(-3, num + 3, size=M)
+    if case == "all-dropped":
+        ids = rng.choice([-7, -1, num, num + 5], size=M)
+    elif case == "none-dropped":
+        ids = rng.integers(0, num, size=M)
+    elif case == "empty-segments":          # every other id has no row
+        ids = 2 * rng.integers(0, num // 2, size=M)
+    elif case == "single-row-runs":
+        ids = rng.permutation(np.r_[np.arange(num), np.full(M - num, -1)])
+    elif case == "outside-ids":             # far below 0 and at / above num
+        ids = np.where(rng.random(M) < 0.5, ids,
+                       rng.choice([-2**31, -1, num, num + 1, 2**31 - 1],
+                                  size=M))
+    x = rng.normal(size=(M, K)).astype(dtype)
+    if case == "negative-zero":             # runs of -0.0 only, and mixed
+        x[rng.random(M) < 0.6] = -0.0
+        ids = np.where(ids % 3 == 0, ids, num)
+        x[ids == 0] = -0.0
+    elif case == "order-sensitive":         # in row order 0, reversed 1
+        big = 1e8 if dtype == np.float32 else 1e17
+        trip = np.array([1.0, big, -big], dtype)
+        for s in range(0, num, 4):
+            where = np.flatnonzero(ids == s)[:3]
+            x[where] = trip[:len(where), None]
+    return (x[:, 0] if K == 1 else x), ids.astype(np.int32), num
+
+
+SEGMENT_CASES = ["random", "all-dropped", "none-dropped", "empty-segments",
+                 "single-row-runs", "negative-zero", "order-sensitive",
+                 "outside-ids"]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("K", [1, 10, 12, 256])
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_plan_sums_each_run_in_row_order(case, K, dtype):
+    """The plan (stable order, sorted ids with the dropped bucket num last)
+    and the planned sums against a numpy loop, bit for bit (signed zeros
+    included)."""
+    rng = np.random.default_rng(SEGMENT_CASES.index(case) * 1000 + K)
+    x, ids, num = _segment_case(case, K, dtype, rng)
+    order, seg_sorted = segment_ops.segment_plan(_t(ids), num)
+    bucket = np.where((ids >= 0) & (ids < num), ids, num)
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(bucket, kind="stable"))
+    np.testing.assert_array_equal(seg_sorted.numpy(), np.sort(bucket))
+    assert seg_sorted.dtype == order.dtype == torch.int64
+    want = _sums_in_row_order(x, ids, num)
+    for got in (segment_ops.segment_sum_planned(_t(x), order, seg_sorted,
+                                                num),
+                segment_ops.segment_sum(_t(x), _t(ids), num)):
+        assert got.dtype == _t(x).dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(np.signbit(got.numpy()),
+                                      np.signbit(want))
+
+
+def test_segment_sum_counts_the_plain_path():
+    from dr_using_scv_od_tpu_torch.utils import timing
+    with timing.recording() as rec:
+        s = segment_ops.segment_sum(torch.ones(4, 2),
+                                    torch.tensor([0, 1, 1, 5]), 3)
+    assert rec.counts == {"segment_sum.plain": 1}
+    np.testing.assert_array_equal(s.numpy(), [[1, 1], [2, 2], [0, 0]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_posegraph_node_sums_keep_their_outputs(seed, dtype):
+    """The pose graph's per-node sums through the (order, sorted ids) plan
+    equal the lengths-based segment_reduce they were computed with before,
+    and the edge-order numpy loop, bit for bit."""
+    from dr_using_scv_od_tpu_torch.models import posegraph
+    rng = np.random.default_rng(seed)
+    F, E = 24, 40
+    edge_i = torch.from_numpy(rng.integers(0, F, E).astype(np.int32))
+    edge_j = torch.from_numpy(rng.integers(0, F, E).astype(np.int32))
+    eye = torch.eye(4, dtype=dtype)
+    pg = posegraph.PoseGraph(eye.expand(F, 4, 4), edge_i, edge_j,
+                             eye.expand(E, 4, 4), torch.ones(E))
+    rows_i = torch.from_numpy(rng.normal(size=(E, 6))).to(dtype)
+    rows_j = torch.from_numpy(rng.normal(size=(E, 6))).to(dtype)
+    got = posegraph._node_sum(posegraph._node_plan(pg), rows_i, rows_j)
+
+    ids = torch.cat([edge_i, edge_j]).long()
+    rows = torch.cat([rows_i, rows_j])
+    seg, order = torch.sort(torch.where((ids >= 0) & (ids < F), ids, F),
+                            stable=True)
+    before = torch.segment_reduce(
+        rows[order], "sum", lengths=torch.bincount(seg, minlength=F + 1),
+        axis=0, unsafe=True)[:F]
+    assert torch.equal(got, before)
+    np.testing.assert_array_equal(
+        got.numpy(), _sums_in_row_order(rows.numpy(), ids.numpy(), F))
+
+
 @pytest.mark.parametrize("max_clusters", [512, 8])
 def test_compact_grid_labels_matches_jax(max_clusters):
     """Roots numbered in ascending flat-id order; past max_clusters the
