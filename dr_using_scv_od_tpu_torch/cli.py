@@ -78,7 +78,7 @@ def _load_window(args, cfg):
 def cmd_segdf(args):
     from . import config
     from .eval import metrics
-    from .models import odometry, pipeline
+    from .models import pipeline
     from .utils import io_kitti, timing
 
     cfg = getattr(config, args.profile)()
@@ -86,18 +86,11 @@ def cmd_segdf(args):
     timer = timing.StageTimer(Path(args.out) / "time.txt"
                               if args.out else None)
 
-    poses = win_t["poses"]
-    if args.estimate_poses:
-        with timer.stage("odometry"):
-            od = odometry.estimate_window_poses(win_t["xyz"],
-                                                win_t["valid"], cfg)
-            poses = od.poses
-            timing.sync(poses)
-
-    with timer.stage("pipeline"):
-        res = pipeline.run_window(win_t["xyz"], win_t["intensity"],
-                                  win_t["valid"], poses, cfg)
-        removed = res.removed.cpu().numpy()
+    res = pipeline.segdf_window(win_t["xyz"], win_t["intensity"],
+                                win_t["valid"], win_t["poses"], cfg,
+                                estimate_poses=args.estimate_poses,
+                                timer=timer).window
+    removed = res.removed.cpu().numpy()
     timer.end_frame()
 
     F = win["xyz"].shape[0]

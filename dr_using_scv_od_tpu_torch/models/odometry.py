@@ -15,6 +15,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..ops import geometry
+from ..utils import timing
 from . import gicp, posegraph
 
 
@@ -29,21 +30,25 @@ def estimate_window_poses(xyz: torch.Tensor, valid: torch.Tensor,
                           cfg: PipelineConfig) -> OdometryResult:
     """Sequential scan-to-scan odometry over a [F, N, 3] window: frame t+1
     registers into frame t, warm-started with the previous relative
-    transform (constant velocity)."""
-    T_rel = torch.eye(4, dtype=xyz.dtype, device=xyz.device)
-    rel, n_corr, err = [], [], []
-    for t in range(xyz.shape[0] - 1):
-        vm = gicp.build_voxel_map(xyz[t], valid[t], cfg.gicp)
-        res = gicp.register_pyramid(xyz[t + 1], valid[t + 1], vm, cfg.gicp,
-                                    T_init=T_rel)
-        T_rel = res.T
-        rel.append(res.T)
-        n_corr.append(res.n_corr)
-        err.append(res.final_error)
-    rel_T = torch.stack(rel)
-    return OdometryResult(poses=posegraph.odometry_chain(rel_T), rel_T=rel_T,
-                          n_corr=torch.stack(n_corr),
-                          final_error=torch.stack(err))
+    transform (constant velocity). Recorded as span "window_odometry"
+    (timing.span), with the F - 1 pairs added to the count
+    "odometry.pairs"."""
+    with timing.span("window_odometry"):
+        timing.count("odometry.pairs", xyz.shape[0] - 1)
+        T_rel = torch.eye(4, dtype=xyz.dtype, device=xyz.device)
+        rel, n_corr, err = [], [], []
+        for t in range(xyz.shape[0] - 1):
+            vm = gicp.build_voxel_map(xyz[t], valid[t], cfg.gicp)
+            res = gicp.register_pyramid(xyz[t + 1], valid[t + 1], vm,
+                                        cfg.gicp, T_init=T_rel)
+            T_rel = res.T
+            rel.append(res.T)
+            n_corr.append(res.n_corr)
+            err.append(res.final_error)
+        rel_T = torch.stack(rel)
+        return OdometryResult(poses=posegraph.odometry_chain(rel_T),
+                              rel_T=rel_T, n_corr=torch.stack(n_corr),
+                              final_error=torch.stack(err))
 
 
 def estimate_window_poses_scan_to_map(xyz: torch.Tensor, valid: torch.Tensor,

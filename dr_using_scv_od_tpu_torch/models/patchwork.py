@@ -13,6 +13,11 @@ values are plain indexing.
 Semantics kept from the reference: points with r outside
 (min_range, max_range] or z < -1.8 * sensor_height reach neither output;
 patches with <= num_min_pts points are skipped; plane normals point up.
+
+On a card, `estimate_ground` replays one CUDA graph per shape and config
+(`GRAPHS`): its hundreds of small launches cost the host one replay, and
+nothing is read back. Elsewhere the same ops run one by one. Both give the
+same result bit for bit.
 """
 
 from __future__ import annotations
@@ -25,8 +30,12 @@ import torch
 from ..config import PatchworkConfig
 from ..ops import geometry, segment_ops
 from ..ops import plane as plane_ops
+from ..utils import timing
 
 _NB = 128  # z-histogram bins per patch
+# captured calls kept per process (one per shape and config); a call that
+# finds no room runs the same ops eagerly
+MAX_GRAPHS = 8
 
 
 class PatchworkResult(NamedTuple):
@@ -51,6 +60,23 @@ def _patch_tables(cfg: PatchworkConfig):
                          else -1] * ns
             concentric += 1
     return thr_slot
+
+
+_TABLES = {}
+
+
+def _verdict_tables(cfg: PatchworkConfig, device, dtype):
+    """(threshold slot [P] int64, elevation thresholds, flatness thresholds)
+    on `device`, uploaded once per config, so that a captured call copies
+    nothing from the host."""
+    key = (cfg, device, dtype)
+    if key not in _TABLES:
+        _TABLES[key] = (
+            torch.tensor(_patch_tables(cfg), dtype=torch.int64,
+                         device=device),
+            torch.tensor(cfg.elevation_thr, dtype=dtype, device=device),
+            torch.tensor(cfg.flatness_thr, dtype=dtype, device=device))
+    return _TABLES[key]
 
 
 def _patch_id(xyz: torch.Tensor, valid: torch.Tensor,
@@ -121,7 +147,16 @@ def _moment_feats(xyz: torch.Tensor) -> torch.Tensor:
 
 def estimate_ground(xyz: torch.Tensor, valid: torch.Tensor,
                     cfg: PatchworkConfig) -> PatchworkResult:
-    """Batched Patchwork over xyz [N,3] f32 with valid [N] bool."""
+    """Batched Patchwork over xyz [N,3] f32 with valid [N] bool: on a card
+    the replay of a captured call (`GRAPHS`), elsewhere `_estimate_ground`."""
+    if xyz.device.type == "cuda":
+        return GRAPHS.run(xyz, valid, cfg)
+    return _estimate_ground(xyz, valid, cfg)
+
+
+def _estimate_ground(xyz: torch.Tensor, valid: torch.Tensor,
+                     cfg: PatchworkConfig) -> PatchworkResult:
+    """The plain ops of `estimate_ground`, one by one."""
     P = cfg.num_patches
     device = xyz.device
 
@@ -180,15 +215,12 @@ def estimate_ground(xyz: torch.Tensor, valid: torch.Tensor,
         mask = binned & (dist < cpt[:, 3])
 
     # ---- patch verdicts (patchwork.h:339-384)
-    thr_slot = torch.tensor(_patch_tables(cfg), dtype=torch.int64,
-                            device=device)
+    thr_slot, elev_thr, flat_thr = _verdict_tables(cfg, device, xyz.dtype)
     uprightness = normal[:, 2].abs()
     elevation = mean[:, 2]
     surface_var = evals[:, 0] / torch.clamp_min(
         evals[:, 0] + evals[:, 1] + evals[:, 2], 1e-12)
 
-    elev_thr = torch.tensor(cfg.elevation_thr, dtype=xyz.dtype, device=device)
-    flat_thr = torch.tensor(cfg.flatness_thr, dtype=xyz.dtype, device=device)
     slot_t = torch.clamp(thr_slot, 0, len(cfg.elevation_thr) - 1)
     has_slot = thr_slot >= 0
     too_high = has_slot & (elevation > elev_thr[slot_t])
@@ -206,3 +238,66 @@ def estimate_ground(xyz: torch.Tensor, valid: torch.Tensor,
     return PatchworkResult(ground=ground, nonground=nonground,
                            dropped=dropped, patch_normal=normal,
                            patch_mean_z=elevation)
+
+
+class _Graph:
+    """`_estimate_ground` on a card, captured once into a CUDA graph: a
+    call copies its inputs into the static buffers, replays the graph and
+    returns clones of the static outputs. Each call counts the segment sums
+    of one eager call (the warm-up before the capture is not counted)."""
+
+    def __init__(self, xyz, valid, cfg: PatchworkConfig):
+        device = xyz.device
+        self.xyz = xyz.clone()
+        self.valid = valid.clone()
+        _verdict_tables(cfg, device, xyz.dtype)
+
+        def run():
+            return _estimate_ground(self.xyz, self.valid, cfg)
+
+        launches = segment_ops.segment_sum.launches
+        # warm up on a side stream first, so that the kernels are built and
+        # the allocator's blocks exist before the capture
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = run()
+        # take back what the warm-up and the capture counted
+        self.sums = (segment_ops.segment_sum.launches - launches) // 2
+        segment_ops.segment_sum.launches = launches
+        timing.count("segment_sum.card", -2 * self.sums)
+
+    def __call__(self, xyz, valid) -> PatchworkResult:
+        self.xyz.copy_(xyz)
+        self.valid.copy_(valid)
+        self.graph.replay()
+        segment_ops.segment_sum.launches += self.sums
+        timing.count("segment_sum.card", self.sums)
+        return PatchworkResult(*(t.clone() for t in self.out))
+
+
+class _Graphs:
+    """The captured calls of the process, by device, dtype, point count and
+    config; at most `size`."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.graphs = {}
+
+    def run(self, xyz, valid, cfg: PatchworkConfig) -> PatchworkResult:
+        key = (xyz.device, xyz.dtype, xyz.shape[0], cfg)
+        g = self.graphs.get(key)
+        if g is None:
+            if len(self.graphs) >= self.size:
+                timing.count("patchwork.eager")
+                return _estimate_ground(xyz, valid, cfg)
+            g = self.graphs[key] = _Graph(xyz, valid, cfg)
+        timing.count("patchwork.graph")
+        return g(xyz, valid)
+
+
+GRAPHS = _Graphs(MAX_GRAPHS)

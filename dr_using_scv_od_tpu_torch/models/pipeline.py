@@ -10,7 +10,8 @@ the kernels of each frame run on the device of the inputs.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -18,7 +19,7 @@ from ..config import PipelineConfig
 from ..types import (STATE_DYNAMIC, ClusterTable, FrameState, PointCloud,
                      stack)
 from ..utils import timing
-from . import patchwork, recognition, segmentation, tracking
+from . import odometry, patchwork, recognition, segmentation, tracking
 
 
 class FrameOutput(NamedTuple):
@@ -140,3 +141,34 @@ def run_window(xyz: torch.Tensor, intensity: torch.Tensor,
                             new_row_overflow=tr.new_row_overflow,
                             track_point_overflow=tr.track_point_overflow,
                             track_counter=tr.counter)
+
+
+class SegdfResult(NamedTuple):
+    poses: torch.Tensor            # [F, 4, 4] the poses run_window took
+    window: WindowResult
+
+
+def segdf_window(xyz: torch.Tensor, intensity: torch.Tensor,
+                 valid: torch.Tensor, poses: Optional[torch.Tensor],
+                 cfg: PipelineConfig, *, estimate_poses: bool,
+                 timer: Optional[timing.StageTimer] = None) -> SegdfResult:
+    """Offline removal of one window, as `cli segdf` runs it: with
+    `estimate_poses` the window's poses come from scan-to-scan GICP
+    (`odometry.estimate_window_poses`, and `poses` may be None), else
+    `poses` are taken as given; then `run_window` on them.
+
+    With a `timer` the two steps are its stages "odometry" and "pipeline",
+    each ended by a wait on the device, so that a stage's time holds its
+    device work."""
+    stage = (timer.stage if timer is not None
+             else lambda name: contextlib.nullcontext())
+    if estimate_poses:
+        with stage("odometry"):
+            poses = odometry.estimate_window_poses(xyz, valid, cfg).poses
+            if timer is not None:
+                timing.sync(poses)
+    with stage("pipeline"):
+        res = run_window(xyz, intensity, valid, poses, cfg)
+        if timer is not None:
+            timing.sync(res.removed)
+    return SegdfResult(poses=poses, window=res)

@@ -145,8 +145,13 @@ def grid_label_counts(labels: torch.Tensor, num: int,
     function's `weight_bound` has no counterpart."""
     if weights is not None:
         return grid_label_hist_multi(labels, num, [weights])[1][0]
-    return torch.bincount(_bucket(labels, num),
-                          minlength=num + 1)[:num].to(torch.int32)
+    # integer adds, exact in any order; unlike a card's bincount, which
+    # reads the labels' bounds back, this reads nothing
+    seg = _bucket(labels, num)
+    counts = torch.zeros(num + 1, dtype=torch.int32, device=labels.device)
+    counts.index_add_(0, seg, torch.ones(seg.shape, dtype=torch.int32,
+                                         device=labels.device))
+    return counts[:num]
 
 
 def grid_label_hist_multi(labels: torch.Tensor, num: int,

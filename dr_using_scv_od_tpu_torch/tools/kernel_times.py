@@ -179,7 +179,7 @@ def main_path_segment_sums(device: torch.device
     sums = {}
     segment_ops.segment_sum_planned = keep
     try:
-        patchwork.estimate_ground(xyz[0], valid[0], cfg.patchwork)
+        patchwork._estimate_ground(xyz[0], valid[0], cfg.patchwork)
         widths = [c[0].shape[1] for c in calls]
         if widths.count(10) != 3 or widths.count(256) != 1:
             raise RuntimeError(f"patchwork's planned sums changed: widths "

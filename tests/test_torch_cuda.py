@@ -22,6 +22,9 @@ Python scalar on the card multiplies by its reciprocal and would not.
 Points whose atan2 rounds otherwise on the card (a last-bit difference of
 the device's atan2, not of the binning) are left out and counted.
 
+`pipeline.segdf_window` (`cli segdf --estimate-poses`) on the card: its
+estimated poses within 5e-4 of the CPU's and the same removed mask.
+
 The evaluation subcommands (`evaluate`, `evaluate-map`, `erasor`) print
 the same lines on the card as with `--device cpu`, with PyTorch's default
 float32 matmul precision (no TF32).
@@ -169,6 +172,105 @@ def test_run_window_on_card_matches_cpu(cuda_device):
     cpu = pipeline.run_window(*interop.window_from_numpy(win, "cpu"), cfg)
     assert torch.equal(gpu.removed.cpu(), cpu.removed)
     assert torch.equal(gpu.label_grids.cpu(), cpu.label_grids)
+
+
+def test_segdf_window_on_card_matches_cpu(cuda_device):
+    """`cli segdf --estimate-poses`'s entry at full width on chip_smoke.py
+    phase 8's 4-frame window: the card's estimated poses within 5e-4 of
+    the CPU's (chip_smoke.POSE_ATOL) and the same removed mask."""
+    cfg = config.semantickitti()
+    win = synthetic.render_window(synthetic.make_scene(synthetic.SceneSpec()),
+                                  4, cfg.shapes.max_points)
+    got = [pipeline.segdf_window(*interop.window_from_numpy(win, dev), cfg,
+                                 estimate_poses=True)
+           for dev in (cuda_device, "cpu")]
+    gap = float((got[0].poses.cpu() - got[1].poses).abs().max())
+    assert gap < 5e-4
+    assert torch.equal(got[0].window.removed.cpu(), got[1].window.removed)
+    assert int(got[1].window.removed.sum()) > 0
+
+
+@pytest.fixture
+def fresh_patchwork_graphs(monkeypatch):
+    """An empty cache of captured patchwork calls for the test."""
+    graphs = patchwork._Graphs(patchwork.MAX_GRAPHS)
+    monkeypatch.setattr(patchwork, "GRAPHS", graphs)
+    return graphs
+
+
+@pytest.fixture(scope="module")
+def patchwork_frames():
+    """Frames 0, 1 and 2 of a rendered full-width window on the CPU."""
+    cfg = config.semantickitti()
+    win = synthetic.render_window(synthetic.make_scene(synthetic.SceneSpec()),
+                                  3, cfg.shapes.max_points)
+    xyz, _, valid, _ = interop.window_from_numpy(win, "cpu")
+    return xyz, valid, cfg.patchwork
+
+
+def _assert_same_ground(a, b):
+    for name in patchwork.PatchworkResult._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()), name
+
+
+def test_patchwork_graph_equals_eager_on_card(cuda_device, patchwork_frames,
+                                              fresh_patchwork_graphs):
+    """One captured call serves three frames in turn, each equal bit for
+    bit to the eager ops on the card; against the CPU's, the same masks
+    and the patch planes within float32 rounding."""
+    xyz, valid, pw = patchwork_frames
+    for f in (0, 1, 2, 0):
+        x, v = xyz[f].to(cuda_device), valid[f].to(cuda_device)
+        got = patchwork.estimate_ground(x, v, pw)
+        _assert_same_ground(got, patchwork._estimate_ground(x, v, pw))
+        cpu = patchwork.estimate_ground(xyz[f], valid[f], pw)
+        for name in ("ground", "nonground", "dropped"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(cpu, name))
+        for name in ("patch_normal", "patch_mean_z"):
+            torch.testing.assert_close(getattr(got, name).cpu(),
+                                       getattr(cpu, name), rtol=0,
+                                       atol=1e-4)
+        assert int(got.ground.sum()) > 1000
+    assert len(fresh_patchwork_graphs.graphs) == 1
+
+
+def test_patchwork_makes_no_host_sync(cuda_device, patchwork_frames,
+                                      fresh_patchwork_graphs):
+    xyz, valid, pw = patchwork_frames
+    x, v = xyz[0].to(cuda_device), valid[0].to(cuda_device)
+    patchwork.estimate_ground(x, v, pw)                 # capture, replay
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = patchwork.estimate_ground(x, v, pw)       # replay
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert int(got.ground.sum()) > 1000
+
+
+def test_patchwork_recording_counts_the_path_of_each_call(
+        cuda_device, patchwork_frames, monkeypatch):
+    """With room for one captured call: the first call captures and
+    replays it, the second replays it, another point count runs eagerly;
+    each counts the segment sums of one eager call."""
+    xyz, valid, pw = patchwork_frames
+    x, v = xyz[0].to(cuda_device), valid[0].to(cuda_device)
+    half = (x[::2].contiguous(), v[::2].contiguous())
+    monkeypatch.setattr(patchwork, "GRAPHS", patchwork._Graphs(1))
+    sums = []
+    with timing.recording() as rec:
+        for args in ((x, v), (x, v), half):
+            before = segment_ops.segment_sum.launches
+            patchwork.estimate_ground(*args, pw)
+            sums.append(segment_ops.segment_sum.launches - before)
+    before = segment_ops.segment_sum.launches
+    patchwork._estimate_ground(x, v, pw)
+    eager = segment_ops.segment_sum.launches - before
+    assert sums == [eager, eager, eager] and eager >= 4
+    assert rec.counts["patchwork.graph"] == 2
+    assert rec.counts["patchwork.eager"] == 1
+    assert rec.counts["segment_sum.card"] == 3 * eager
 
 
 @pytest.mark.parametrize("seed", range(8))

@@ -239,6 +239,24 @@ def test_segment_plan_sums_each_run_in_row_order(case, K, dtype):
                                       np.signbit(want))
 
 
+@pytest.mark.parametrize("case", ["random", "outside", "empty",
+                                  "one_label"])
+def test_grid_label_counts_equal_a_bincount(case):
+    """The unweighted histogram, which reads nothing back on a card,
+    against numpy's bincount of the labels in [0, num)."""
+    rng = np.random.default_rng(7)
+    num = 300
+    labels = {"random": rng.integers(0, num, 5000),
+              "outside": rng.integers(-50, num + 50, 5000),
+              "empty": np.zeros(0, np.int64),
+              "one_label": np.full(777, 13)}[case]
+    got = segment_ops.grid_label_counts(torch.from_numpy(labels).int(), num)
+    keep = labels[(labels >= 0) & (labels < num)]
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.bincount(keep, minlength=num))
+
+
 def test_segment_sum_counts_the_plain_path():
     from dr_using_scv_od_tpu_torch.utils import timing
     with timing.recording() as rec:
